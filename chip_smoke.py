@@ -1,0 +1,482 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port on one NVIDIA GPU and check its CUDA kernels.
+
+    python3 chip_smoke.py
+
+Run from the root of the repository, on a machine with a CUDA card (an
+H100) and the CUDA toolkit. Phases, each printing its own lines:
+
+ 1. device: the card's name, the device count and nvidia-smi's name and
+    power limit;
+ 2. build: both kernels of ``modular_semantic_segmentation_torch/csrc``,
+    one nvcc each, in parallel;
+ 3. kernel checks at the flagship shapes (768x384 frames, 14 classes):
+    the confusion kernel against its plain version (exact, with -1 and
+    out-of-range labels and predictions present) and the Dirichlet kernel
+    against its plain version (f32 and bf16 probabilities; labels equal
+    except at argmax ties). Each is timed with CUDA events, L2 flushed
+    between launches, beside its plain version, a PyTorch yardstick call
+    where one exists, and its bound;
+ 4. measure step: two full-width SimpleFCN experts (rgb, depth; num_units
+    64, 14 classes, seeded weights) score 4 seeded frames with labels;
+ 5. Bayes serving: BayesFusion on those confusion matrices, bfloat16,
+    InferenceServer(unroll=4) over 8 frames;
+ 6. Dirichlet serving: DirichletFusion(use_pallas=True), bfloat16, 8 frames;
+ 7. a traced run of each serving path: device time by kernel, busy and
+    idle share per frame;
+ 8. reference checks on a small input, the CUDA path against the plain
+    versions on the CPU.
+
+The launch counts are set to 0 just before phase 4 and read just after
+phase 6. The second-to-last line is the kernels' JSON record and the last
+line ``{"ok": true, "device": {...}}``. Any fault exits non-zero with no
+result line; so does a machine without a CUDA card.
+"""
+
+import json
+import subprocess
+import sys
+import time
+import traceback
+
+import numpy as np
+import torch
+
+HEIGHT, WIDTH = 768, 384
+NUM_CLASSES = 14
+NUM_UNITS = 64
+MEASURE_FRAMES = 4
+SERVE_FRAMES = 8
+UNROLL = 4
+# H100 SXM, NVIDIA's data sheet: HBM rate and the float32 rate outside the
+# tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+TIE_RTOL = 1e-5
+MODALITIES = ("rgb", "depth")
+DATA_DESCRIPTION = (
+    {"labels": np.int32, "rgb": np.float32, "depth": np.float32},
+    {"rgb": (None, None, 3), "depth": (None, None, 1),
+     "labels": (None, None)},
+    NUM_CLASSES)
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def _ms(value):
+    return "not measured" if value is None else f"{value:.4f} ms"
+
+
+def _runs(times):
+    return " / ".join(f"{t:.3f}" for t in times)
+
+
+def check(condition, message):
+    if not condition:
+        raise SmokeFailure(message)
+
+
+def _flush_buffer():
+    """1 GiB whose zeroing (about 0.3 ms) pushes the inputs of a timed call
+    out of the 50 MB L2 cache and keeps the card busy while the host
+    queues the call, so host overhead does not show as device time."""
+    return torch.empty(256 * 1024 * 1024, dtype=torch.float32, device="cuda")
+
+
+def cold_ms(fn, iters=20, warmup=3):
+    """Mean device time of ``fn`` (every kernel it launches, CUDA events)
+    over ``iters`` calls, each after an L2 flush."""
+    flush = _flush_buffer()
+    for _ in range(warmup):
+        fn()
+    total = 0.0
+    events = []
+    for _ in range(iters):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    for start, end in events:
+        total += start.elapsed_time(end)
+    return total / iters
+
+
+def kernel_ms(fn, name, iters=20):
+    """Device time per call of the kernels whose name contains ``name``,
+    from torch.profiler, each call after an L2 flush; None when the
+    profiler records no device time for them."""
+    from torch.profiler import ProfilerActivity, profile
+    flush = _flush_buffer()
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    found = [e for e in prof.key_averages() if name in e.key]
+    total_us = sum(e.self_device_time_total for e in found)
+    return total_us / 1e3 / iters if total_us > 0 else None
+
+
+def bound_ms(n_bytes, n_ops=0.0, ops_per_s=F32_FLOPS_PER_S):
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / ops_per_s * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                   else "operations")
+
+
+def phase_device():
+    check(torch.cuda.is_available(),
+          "no CUDA device: torch.cuda.is_available() is False")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    smi_line = smi.stdout.strip().splitlines()[0]
+    name = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    print(f"device: {name} | device_count {count} | torch {torch.__version__}"
+          f" cuda {torch.version.cuda}")
+    print(f"nvidia-smi name, power.limit: {smi_line}")
+    return name, count, smi_line
+
+
+def phase_build():
+    from modular_semantic_segmentation_torch.ops.cuda import build
+    start = time.perf_counter()
+    build.build()
+    print(f"build: {', '.join(build.KERNEL_SOURCES)} with nvcc in "
+          f"{time.perf_counter() - start:.1f} s")
+
+
+def check_confusion(card):
+    from modular_semantic_segmentation_torch.ops.cuda import confusion
+    k, pixels = NUM_CLASSES, HEIGHT * WIDTH
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    # int64 predictions, as argmax gives them on the main path, int32
+    # labels, as the data gives them; both with values outside [0, K)
+    preds = torch.randint(-1, k + 2, (pixels,), generator=gen,
+                          device="cuda")
+    labels = torch.randint(-2, k + 3, (pixels,), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    got = confusion.confusion_matrix(preds, labels, k)
+    want = confusion.confusion_matrix_plain(preds, labels, k)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "confusion kernel differs from its plain "
+          f"version by {float((got - want).abs().max())}")
+    valid = (labels >= 0) & (labels < k) & (preds >= 0) & (preds < k)
+    check(float(got.sum()) == float(valid.sum()),
+          "confusion kernel counted the wrong number of pixels")
+    index = (labels[valid].long() * k + preds[valid]).contiguous()
+    ms = cold_ms(lambda: confusion.confusion_matrix(preds, labels, k))
+    alone = kernel_ms(lambda: confusion.confusion_matrix(preds, labels, k),
+                      "confusion_kernel")
+    plain = cold_ms(lambda: confusion.confusion_matrix_plain(preds, labels,
+                                                             k))
+    library = cold_ms(lambda: torch.bincount(index, minlength=k * k))
+    n_bytes = (preds.numel() * preds.element_size()
+               + labels.numel() * labels.element_size() + k * k * 4)
+    bound, bound_by = bound_ms(n_bytes)
+    print(f"kernel confusion: exact vs plain over {pixels} pixels; call "
+          f"{ms:.4f} ms (kernel alone {_ms(alone)}), plain {plain:.4f} ms, "
+          f"bincount {library:.4f} ms, bound {bound:.4f} ms ({bound_by}) "
+          f"on {card}")
+    return {"name": "confusion", "route": "cuda",
+            "source": "modular_semantic_segmentation_torch/csrc/"
+                      "confusion.cu",
+            "replaces": "modular_semantic_segmentation_tpu/ops/pallas/"
+                        "confusion_kernel.py:42",
+            "max_abs_err": float((got - want).abs().max()), "ms": ms,
+            "kernel_ms": alone, "plain_ms": plain, "bound_ms": bound,
+            "bound_by": bound_by, "library_ms": library}
+
+
+def check_dirichlet(card):
+    from modular_semantic_segmentation_torch.ops.cuda import dirichlet
+    k, pixels, experts = NUM_CLASSES, HEIGHT * WIDTH, 2
+    rng = np.random.RandomState(0)
+    probs = np.stack([rng.dirichlet(np.ones(k), size=pixels)
+                      for _ in range(experts)]).astype(np.float32)
+    alphas = [rng.rand(k, k) * 4 + 0.5 for _ in range(experts)]
+    prior = rng.dirichlet(np.ones(k))
+    coeffs, bias = dirichlet.dirichlet_tables(alphas, prior, 1.0, k)
+    coeffs = torch.from_numpy(coeffs).cuda()
+    bias = torch.from_numpy(bias).cuda()
+    record = None
+    for dtype in (torch.float32, torch.bfloat16):
+        stacked = torch.from_numpy(probs).to("cuda", dtype)
+        got = dirichlet.dirichlet_label(stacked, coeffs, bias)
+        scores = dirichlet.dirichlet_scores_plain(stacked, coeffs, bias)
+        want = torch.argmax(scores, dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+        best = scores.max(dim=-1).values
+        picked = scores.gather(1, got.long()[:, None])[:, 0]
+        gap = best - picked
+        differ = got != want
+        n_differ = int(differ.sum())
+        rel = gap / best.abs().clamp_min(1e-30)
+        check(bool((rel[differ] <= TIE_RTOL).all()),
+              f"dirichlet kernel ({dtype}) picks labels that are not ties "
+              f"of the plain scores: max relative gap {float(rel.max())}")
+        ms = cold_ms(lambda: dirichlet.dirichlet_label(stacked, coeffs,
+                                                       bias))
+        alone = kernel_ms(lambda: dirichlet.dirichlet_label(
+            stacked, coeffs, bias), "dirichlet_label_kernel")
+        plain = cold_ms(lambda: dirichlet.dirichlet_label_plain(
+            stacked, coeffs, bias))
+        n_bytes = (stacked.numel() * stacked.element_size() + pixels * 4
+                   + (coeffs.numel() + bias.numel()) * 4)
+        n_ops = experts * pixels * (k + 2 * k * k) + pixels * k
+        bound, bound_by = bound_ms(n_bytes, n_ops)
+        print(f"kernel dirichlet {str(dtype)[6:]}: {n_differ} of {pixels} "
+              f"labels differ from plain, all ties within rel "
+              f"{TIE_RTOL}; max score gap {float(gap.max()):.3g}; call "
+              f"{ms:.4f} ms (kernel alone {_ms(alone)}), plain {plain:.4f} "
+              f"ms, bound {bound:.4f} ms ({bound_by}) on {card}")
+        # the record keeps the dtype the main path serves: bfloat16
+        record = {"name": "dirichlet", "route": "cuda",
+                  "source": "modular_semantic_segmentation_torch/csrc/"
+                            "dirichlet.cu",
+                  "replaces": "modular_semantic_segmentation_tpu/ops/"
+                              "pallas/dirichlet_kernel.py:52",
+                  "max_abs_err": float(gap.max()), "ms": ms,
+                  "kernel_ms": alone, "plain_ms": plain, "bound_ms": bound,
+                  "bound_by": bound_by, "library_ms": None}
+    return record
+
+
+def make_frames(seed, count):
+    rng = np.random.RandomState(seed)
+    return {
+        "rgb": (rng.rand(count, HEIGHT, WIDTH, 3) * 255).astype(np.float32),
+        "depth": rng.rand(count, HEIGHT, WIDTH, 1).astype(np.float32),
+        "labels": rng.randint(-1, NUM_CLASSES,
+                              (count, HEIGHT, WIDTH)).astype(np.int32)}
+
+
+def build_experts(device="cuda"):
+    from modular_semantic_segmentation_torch.models import get_model
+    return {m: get_model("simple_fcn")(
+        prefix=m, data_description=DATA_DESCRIPTION, modality=m,
+        num_units=NUM_UNITS, batch_normalization=False, seed=i,
+        device=device) for i, m in enumerate(MODALITIES)}
+
+
+def fusion_model(name, experts, device="cuda", **config):
+    from modular_semantic_segmentation_torch.models import get_model
+    net = get_model(name)(
+        data_description=DATA_DESCRIPTION, num_units=NUM_UNITS,
+        expert_model="fcn", prefixes={m: m for m in MODALITIES},
+        batchsize=1, device=device, **config)
+    for expert in experts.values():
+        net.variables.update(
+            {k: v.to(net.device) for k, v in expert.variables.items()})
+    return net
+
+
+def serve(net, frames, repeats=3):
+    """ms per frame of InferenceServer(unroll=4) over the frames, for each
+    of ``repeats`` runs after a warm-up run (which also fills PyTorch's
+    caches of pinned host and device memory); returns (outputs, times)."""
+    from modular_semantic_segmentation_torch.serving import InferenceServer
+    server = InferenceServer(net, unroll=UNROLL)
+    server.predict(frames)
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = server.predict(frames)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - start) * 1e3 / len(frames))
+    return out, times
+
+
+def serving_profile(net, frames, label):
+    """Device time by kernel over one served group, from torch.profiler
+    (a separate, traced run: the timed runs are untraced)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from modular_semantic_segmentation_torch.serving import InferenceServer
+    server = InferenceServer(net, unroll=UNROLL)
+    group = frames[:UNROLL]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        server.predict(group)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - start) * 1e3 / len(group)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    if not kernels:
+        print(f"{label} profile: not measured (no device time recorded)")
+        return
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / len(group)
+    print(f"{label} profile, traced, per frame: device busy {busy:.3f} ms "
+          f"of {wall:.3f} ms wall, idle share {1 - busy / wall:.2f}; top "
+          f"kernels (ms per frame, launches per frame, name):")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"  {e.self_device_time_total / 1e3 / len(group):8.3f} "
+              f"x{e.count / len(group):5.1f}  {e.key[:100]}")
+
+
+def check_labels(out, what):
+    check(out.shape == (SERVE_FRAMES, HEIGHT, WIDTH),
+          f"{what}: output shape {out.shape}")
+    check(out.min() >= 0 and out.max() < NUM_CLASSES,
+          f"{what}: labels outside [0, {NUM_CLASSES})")
+
+
+def reference_checks(experts, bayes, dirich):
+    """The CUDA path against the plain versions on the CPU, 64x96."""
+    from modular_semantic_segmentation_torch.ops import fusion_math as fm
+    from modular_semantic_segmentation_torch.ops.cuda import dirichlet
+    rng = np.random.RandomState(3)
+    small = {"rgb": (rng.rand(1, 64, 96, 3) * 255).astype(np.float32),
+             "depth": rng.rand(1, 64, 96, 1).astype(np.float32)}
+    cpu_experts = build_experts(device="cpu")
+    worst = 0.0
+    for m in MODALITIES:
+        got = experts[m].predict(small, output_attr="prob")
+        want = cpu_experts[m].predict(small, output_attr="prob")
+        check(np.isfinite(got).all(), f"{m} expert: non-finite probs")
+        worst = max(worst, float(np.abs(got - want).max()))
+    check(worst <= 1e-4, f"float32 experts on the card differ from the CPU "
+          f"by {worst} in prob")
+    classes = [torch.from_numpy(bayes.predict(
+        small, output_attr=f"{m}_classification")) for m in MODALITIES]
+    want = torch.argmax(fm.bayes_fusion(
+        classes, [bayes.confusion_matrices[m] for m in MODALITIES],
+        bayes.config["class_prior"])[0], 3).numpy()
+    check(np.array_equal(bayes.predict(small), want),
+          "Bayes fusion on the card differs from the CPU fusion of the same "
+          "expert classifications")
+    probs = [torch.from_numpy(dirich.predict(
+        small, output_attr=f"{m}_norm_prob")).reshape(-1, NUM_CLASSES)
+        for m in MODALITIES]
+    coeffs, bias = (t.cpu() for t in dirich._kernel_tables(dirich.device,
+                                                           NUM_CLASSES))
+    scores = dirichlet.dirichlet_scores_plain(torch.stack(probs), coeffs,
+                                              bias)
+    got = torch.from_numpy(dirich.predict(small).reshape(-1)).long()
+    gap = scores.max(-1).values - scores.gather(1, got[:, None])[:, 0]
+    rel = gap / scores.max(-1).values.abs().clamp_min(1e-30)
+    check(bool((rel <= TIE_RTOL).all()), "Dirichlet fusion on the card "
+          "picks labels that are not ties of the CPU scores")
+    print(f"reference checks (64x96, CPU plain versions): expert prob max "
+          f"diff {worst:.3g}; Bayes labels equal; Dirichlet labels equal "
+          f"up to ties")
+
+
+def main():
+    times = {}
+
+    def timed(label, fn, *args):
+        start = time.perf_counter()
+        result = fn(*args)
+        times[label] = time.perf_counter() - start
+        print(f"phase {label}: {times[label]:.1f} s")
+        return result
+
+    name, count, smi_line = timed("device", phase_device)
+    from modular_semantic_segmentation_torch.ops.cuda import (confusion,
+                                                              dirichlet)
+    from modular_semantic_segmentation_torch.ops.layers import \
+        configure_float32
+    configure_float32()
+    timed("build", phase_build)
+    records = [timed("confusion check", check_confusion, smi_line),
+               timed("dirichlet check", check_dirichlet, smi_line)]
+    kernels = (confusion.KERNEL, dirichlet.KERNEL)
+
+    # ---- the main path: launch counts from 0
+    for kernel in kernels:
+        kernel.launches = 0
+    experts = build_experts()
+    frames = make_frames(1, MEASURE_FRAMES)
+
+    def measure():
+        cms = {}
+        for m in MODALITIES:
+            measures, cms[m] = experts[m].score(frames)
+            check(np.isfinite(measures["total_accuracy"]),
+                  f"{m}: non-finite accuracy")
+        return cms
+
+    cms = timed("measure step", measure)
+    n_labelled = int((frames["labels"] >= 0).sum())
+    measure_launches = confusion.KERNEL.launches
+    print(f"measure step: confusion sums rgb {cms['rgb'].sum():.0f}, depth "
+          f"{cms['depth'].sum():.0f} (labelled pixels {n_labelled}); "
+          f"confusion launches {measure_launches}")
+    for m in MODALITIES:
+        check(cms[m].sum() == n_labelled, f"{m}: confusion matrix counts "
+              f"{cms[m].sum()} pixels, the labels have {n_labelled}")
+    check(measure_launches > 0, "the measure step launched no confusion "
+          "kernel")
+
+    serve_frames = [{"rgb": frames["rgb"][i % MEASURE_FRAMES],
+                     "depth": frames["depth"][i % MEASURE_FRAMES]}
+                    for i in range(SERVE_FRAMES)]
+    bayes = fusion_model("bayes_fusion", experts, confusion_matrices=cms,
+                         compute_dtype="bfloat16")
+    out, bayes_ms = timed("Bayes serving", serve, bayes, serve_frames)
+    check_labels(out, "Bayes serving")
+    print(f"Bayes serving: {_runs(bayes_ms)} ms/frame over {SERVE_FRAMES} "
+          f"frames at {HEIGHT}x{WIDTH}, bf16, unroll {UNROLL} (host clock, "
+          f"synchronised; three runs after a warm-up) on {smi_line}")
+
+    rng = np.random.RandomState(2)
+    params = {m: rng.rand(NUM_CLASSES, NUM_CLASSES) * 4 + 0.5
+              for m in MODALITIES}
+    params["class_counts"] = rng.randint(1000, 100000, NUM_CLASSES)
+    before = dirichlet.KERNEL.launches
+    dirich = fusion_model("dirichlet_fusion", experts,
+                          dirichlet_params=params, use_pallas=True,
+                          compute_dtype="bfloat16")
+    out, dirichlet_ms = timed("Dirichlet serving", serve, dirich,
+                              serve_frames)
+    check_labels(out, "Dirichlet serving")
+    dirichlet_launches = dirichlet.KERNEL.launches - before
+    print(f"Dirichlet serving: {_runs(dirichlet_ms)} ms/frame over "
+          f"{SERVE_FRAMES} frames at {HEIGHT}x{WIDTH}, bf16, unroll "
+          f"{UNROLL}, dirichlet launches {dirichlet_launches} (host clock, "
+          f"synchronised; three runs after a warm-up) on {smi_line}")
+    check(dirichlet_launches >= SERVE_FRAMES,
+          f"Dirichlet serving launched the kernel {dirichlet_launches} "
+          f"times for {SERVE_FRAMES} frames")
+
+    launches = {k.source: k.launches for k in kernels}
+    # ---- end of the main path
+    timed("profile", lambda: (serving_profile(bayes, serve_frames, "Bayes"),
+                              serving_profile(dirich, serve_frames,
+                                              "Dirichlet")))
+    timed("reference checks", reference_checks, experts, bayes, dirich)
+    for record in records:
+        record["launches"] = launches[record["name"]]
+        check(record["launches"] > 0,
+              f"kernel {record['name']} was not launched on the main path")
+    order = ("name", "route", "source", "replaces", "launches",
+             "max_abs_err", "ms", "kernel_ms", "plain_ms", "bound_ms",
+             "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{key: r[key] for key in order}
+                                  for r in records]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": count}}))
+
+
+if __name__ == "__main__":
+    try:
+        main()
+    except Exception:  # report any fault and exit non-zero, no result line
+        traceback.print_exc()
+        print("chip_smoke: FAILED", file=sys.stderr)
+        sys.exit(1)

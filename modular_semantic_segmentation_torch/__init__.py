@@ -1,0 +1,27 @@
+"""modular_semantic_segmentation_torch — the PyTorch/CUDA port of
+``modular_semantic_segmentation_tpu`` for NVIDIA Hopper (H100).
+
+Per-modality expert CNNs (SimpleFCN/VGG16) whose per-pixel outputs are fused
+by statistical fusion layers (Bayes over confusion-matrix likelihoods,
+class-conditional Dirichlet densities). Module names follow the JAX
+package so each file has an obvious counterpart there; the JAX package
+stays the reference this port is tested against.
+
+Layout:
+    ops/        layers, fusion math, metrics; ops/cuda/ wraps the
+                hand-written Hopper kernels in csrc/
+    models/     Estimator eval runtime, SimpleFCN, Bayes/Dirichlet fusion
+    utils/      host-side batch plumbing
+    serving.py  frame-at-a-time inference server
+
+Public tensors are NHWC, as in the JAX package. Entry points take a
+``device`` argument that defaults to ``"cuda"``; pass ``"cpu"`` to run the
+plain PyTorch versions of the kernels (as the tests do).
+
+The port imports ``torch``, ``numpy``, ``scipy`` and the standard library,
+and nothing of JAX or of the JAX package.
+"""
+
+__version__ = "0.1.0"
+
+from modular_semantic_segmentation_torch.models import get_model  # noqa: F401

@@ -1,0 +1,27 @@
+"""Model registry: the subset of the JAX package's registry that is ported.
+
+Lazy imports, as in the JAX package; an unknown or not yet ported name
+raises the JAX package's ``UserWarning``.
+"""
+
+import importlib
+
+_REGISTRY = {
+    "fcn": ("simple_fcn", "SimpleFCN"),
+    "simple_fcn": ("simple_fcn", "SimpleFCN"),
+    "bayes_mix": ("bayes_fusion", "BayesFusion"),
+    "bayes_fusion": ("bayes_fusion", "BayesFusion"),
+    "dirichlet_mix": ("dirichlet_fusion", "DirichletFusion"),
+    "dirichlet_fusion": ("dirichlet_fusion", "DirichletFusion"),
+}
+
+
+def get_model(name):
+    """Look up a model class by registry name."""
+    try:
+        module_name, cls_name = _REGISTRY[name]
+    except KeyError:
+        raise UserWarning(f"ERROR: Model {name} not found") from None
+    module = importlib.import_module(
+        f"modular_semantic_segmentation_torch.models.{module_name}")
+    return getattr(module, cls_name)

@@ -1,0 +1,82 @@
+"""Bayes fusion of expert classifications via confusion-matrix likelihoods
+(counterpart of the JAX package's ``models/bayes_fusion.py``).
+
+The per-expert tables (conditionals, their logs, the log prior) are built
+once per device and kept, where the JAX package bakes them into the jitted
+step as constants. ``use_decision_matrix`` replaces the fusion by one K^E
+table lookup.
+"""
+
+import numpy as np
+import torch
+
+from modular_semantic_segmentation_torch.ops import fusion_math as fm
+from modular_semantic_segmentation_torch.models.fusion_base import FusionModel
+
+
+class BayesFusion(FusionModel):
+    """Mixture of CNN experts following the 'bayes mix' method.
+
+    Args:
+        confusion_matrices: dict {modality: [K, K] matrix} measured on the
+            measure set (rows = true class, as ``score`` returns them).
+            Loading them from past experiments (``eval_experiments``) needs
+            the experiment store, which is not ported yet.
+        class_prior: 'data' | 'uniform' | float mixture weight.
+    """
+
+    def __init__(self, output_dir=None, confusion_matrices=False, **config):
+        standard_config = {"class_prior": "data"}
+        standard_config.update(config)
+        if not confusion_matrices:
+            raise NotImplementedError(
+                "BayesFusion needs confusion_matrices: loading them from "
+                "eval_experiments is not ported yet")
+        # transposed, as the reference model does
+        self.confusion_matrices = {
+            key: np.asarray(matrix, "float32").T
+            for key, matrix in confusion_matrices.items()}
+        self._tables = {}
+        FusionModel.__init__(self, name="BayesFusion", output_dir=output_dir,
+                             **standard_config)
+
+    def _device_tables(self, device):
+        """Fusion tables on ``device``, built on first use."""
+        key = str(device)
+        if key not in self._tables:
+            matrices = [self.confusion_matrices[m] for m in self.modalities]
+            if self.config.get("use_decision_matrix"):
+                self._tables[key] = torch.from_numpy(
+                    fm.bayes_decision_matrix(
+                        matrices, self.config["class_prior"])).to(device)
+            else:
+                self._tables[key] = fm.bayes_tables(
+                    matrices, self.config["class_prior"], device=device)
+        return self._tables[key]
+
+    def _fusion(self, expert_outputs):
+        classifications = [expert_outputs[m]["classification"]
+                           for m in self.modalities]
+        tables = self._device_tables(classifications[0].device)
+        if self.config.get("use_decision_matrix"):
+            return {"prediction": fm.apply_decision_matrix(tables,
+                                                           classifications)}
+        fused_score, likelihoods, conditionals = fm.bayes_fusion_from_tables(
+            classifications, tables)
+        out = {"prediction": torch.argmax(fused_score, 3),
+               "fused_score": fused_score}
+        for m, ll_, cond in zip(self.modalities, likelihoods, conditionals):
+            out[f"{m}_likelihood"] = ll_
+            out[f"{m}_conditional"] = cond
+        return out
+
+    def get_insight(self, data):
+        """Per-pixel fusion diagnostics: (probs, likelihoods, conditionals,
+        prediction), lists in modality order."""
+        probs = [self.predict(data, output_attr=f"{m}_prob")
+                 for m in self.modalities]
+        likelihoods = [self.predict(data, output_attr=f"{m}_likelihood")
+                       for m in self.modalities]
+        conditionals = [self.predict(data, output_attr=f"{m}_conditional")
+                        for m in self.modalities]
+        return probs, likelihoods, conditionals, self.predict(data)

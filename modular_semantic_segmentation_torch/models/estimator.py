@@ -1,0 +1,187 @@
+"""Estimator: the eval runtime shared by every model of the port.
+
+Counterpart of the JAX package's ``models/estimator.py``, eval subset:
+config handling and ``compute_dtype``, ``_preprocess`` (``input_scaling``
+and integer promotion), the eval step, ``predict``, ``score`` (partial
+batches padded with label -1) and npz ``import_weights`` /
+``export_weights``. Training is not ported yet.
+
+Variables are a flat ``{tf_name: float32 tensor}`` store on ``device``,
+made from the subclass's variable specs and a numpy seed (config ``seed``,
+default 0). PyTorch runs eagerly, so there is no jitted step: the eval
+step is a plain call under ``torch.inference_mode``.
+
+Subclass contract:
+    _variable_specs() -> [(name, shape, initializer), ...]
+    _test_outputs(ctx, batch) -> dict with 'prediction' (+ 'prob', ...)
+"""
+
+import numpy as np
+import torch
+
+from modular_semantic_segmentation_torch.models import params as params_lib
+from modular_semantic_segmentation_torch.ops import metrics as metrics_lib
+from modular_semantic_segmentation_torch.ops.init import build_variables
+from modular_semantic_segmentation_torch.ops.layers import configure_float32
+from modular_semantic_segmentation_torch.ops.variables import (
+    Ctx, resolve_device, resolve_dtype)
+from modular_semantic_segmentation_torch.utils.data_io import iterate_batches
+
+
+def to_numpy(value):
+    """Host numpy copy of a tensor; bfloat16 comes back as float32, which
+    numpy has no type for."""
+    if not isinstance(value, torch.Tensor):
+        return np.asarray(value)
+    value = value.detach()
+    if value.dtype == torch.bfloat16:
+        value = value.float()
+    return value.cpu().numpy()
+
+
+class Estimator:
+    """Base class for all models. See module docstring.
+
+    Args:
+        data_description: (dtypes, shapes, num_classes), as a dataset's
+            ``get_data_description()`` gives it.
+        compute_dtype: 'float32' | 'bfloat16', the dtype inside the convs.
+        device: where variables live and the model runs; 'cuda' (the
+            default) raises when there is no card.
+    """
+
+    def __init__(self, data_description, name=None, output_dir=None,
+                 batchsize=1, compute_dtype="float32", device="cuda",
+                 **config):
+        self.name = name if name is not None else type(self).__name__
+        self.output_dir = output_dir
+        self.config = config
+        self.config["batchsize"] = batchsize
+        self.config["num_classes"] = data_description[2]
+        self.data_description = data_description
+        self.compute_dtype = resolve_dtype(compute_dtype)
+        self.device = resolve_device(device)
+        self.global_step = 0
+        self._diagonal_cache = {}
+        configure_float32()
+        self.variables = build_variables(
+            self._variable_specs(), seed=int(config.get("seed", 0)),
+            device=self.device)
+
+    # ------------------------------------------------------------- contracts
+    def _variable_specs(self):
+        raise NotImplementedError
+
+    def _test_outputs(self, ctx, batch):
+        raise NotImplementedError
+
+    def _input_channels(self, modality):
+        channels = self.data_description[1][modality][-1]
+        if channels is None:
+            raise ValueError(f"data description gives no channel count for "
+                             f"'{modality}'")
+        return int(channels)
+
+    # ----------------------------------------------------------------- steps
+    def _batch_to_device(self, batch):
+        """Host batch dict -> tensors on the model's device. To a card the
+        copies go from pinned memory without blocking the host."""
+        out = {}
+        for key, value in batch.items():
+            t = (value if isinstance(value, torch.Tensor)
+                 else torch.from_numpy(np.ascontiguousarray(value)))
+            if self.device.type == "cuda" and t.device.type == "cpu":
+                t = t.pin_memory().to(self.device, non_blocking=True)
+            else:
+                t = t.to(self.device)
+            out[key] = t
+        return out
+
+    def _preprocess(self, batch):
+        """Input normalization on the device.
+
+        config ``input_scaling``: {modality: scale | (scale, offset)}.
+        Integer inputs (compact uint8 frames) are promoted to float32."""
+        scaling = self.config.get("input_scaling") or {}
+        out = dict(batch)
+        for modality, value in batch.items():
+            if modality == "labels":
+                continue
+            spec = scaling.get(modality)
+            if spec is not None:
+                scale, offset = (spec if isinstance(spec, (tuple, list))
+                                 else (spec, 0.0))
+                out[modality] = value.float() * scale + offset
+            elif not value.is_floating_point():
+                out[modality] = value.float()
+        return out
+
+    def _forward(self, batch):
+        """Test outputs for a batch already on the device."""
+        with torch.inference_mode():
+            ctx = Ctx(self.variables, compute_dtype=self.compute_dtype,
+                      diagonal_cache=self._diagonal_cache)
+            return self._test_outputs(ctx, self._preprocess(batch))
+
+    def _eval_step(self, batch):
+        """Test outputs and, with labels in the batch, its confusion
+        matrix."""
+        out = self._forward(batch)
+        if "labels" in batch:
+            with torch.inference_mode():
+                out["confusion_matrix"] = metrics_lib.confusion_matrix(
+                    out["prediction"], batch["labels"],
+                    self.config["num_classes"])
+        return out
+
+    # --------------------------------------------------------------- predict
+    def predict(self, data, output_attr=None):
+        """Per-pixel outputs for the input data (``output_attr`` picks a
+        test output other than 'prediction')."""
+        attr = output_attr or "prediction"
+        outputs = []
+        for batch, valid in iterate_batches(data, self.config["batchsize"]):
+            out = self._forward(self._batch_to_device(batch))
+            if attr not in out:
+                raise AttributeError(
+                    f"unknown output_attr '{attr}'; this model produces "
+                    f"{sorted(out)}")
+            outputs.append(to_numpy(out[attr])[:valid])
+        return np.concatenate(outputs)
+
+    # ----------------------------------------------------------------- score
+    def score(self, data, max_iterations=None):
+        """Confusion-matrix metric suite. Returns (measures, confusion).
+
+        The matrix is accumulated on the device and read back once."""
+        num_classes = self.config["num_classes"]
+        total = torch.zeros((num_classes, num_classes), dtype=torch.float32,
+                            device=self.device)
+        count = 0
+        for batch, _ in iterate_batches(data, self.config["batchsize"]):
+            out = self._eval_step(self._batch_to_device(batch))
+            total += out["confusion_matrix"]
+            count += 1
+            if max_iterations is not None and count >= max_iterations:
+                break
+        confusion = to_numpy(total)
+        measures = metrics_lib.measures_from_confusion_matrix(confusion)
+        return measures, confusion
+
+    # ------------------------------------------------------------- weight IO
+    def export_weights(self, save_dir=None):
+        out_dir = save_dir or self.output_dir
+        if out_dir is None:
+            print("ERROR: No path specified to save weights to.")
+            return None
+        store = dict(self.variables)
+        store["global_step"] = np.asarray(self.global_step)
+        return params_lib.export_weights(store, out_dir, self.name,
+                                         self.global_step)
+
+    def import_weights(self, filepath, translate_prefix=False,
+                       chill_mode=False, warnings=True):
+        self.variables, report = params_lib.import_weights(
+            self.variables, filepath, translate_prefix=translate_prefix,
+            chill_mode=chill_mode, warnings=warnings)
+        return report

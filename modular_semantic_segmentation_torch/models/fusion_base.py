@@ -1,0 +1,97 @@
+"""Fusion model base: frozen expert networks per modality whose per-pixel
+outputs are fused (counterpart of the JAX package's
+``models/fusion_base.py``).
+
+The experts run one after the other, each with its own stem. The JAX
+package packs the thin-channel stems of several FCN experts into one
+block-diagonal conv stack by default (``models/packed_experts.py``, a TPU
+lane-occupancy measure with identical numerics); the port runs them
+unpacked and accepts and ignores the ``pack_experts`` option.
+"""
+
+from modular_semantic_segmentation_torch.ops import layers as ll
+from modular_semantic_segmentation_torch.models.estimator import Estimator
+from modular_semantic_segmentation_torch.models.simple_fcn import (
+    fcn, fcn_variable_specs)
+
+
+def test_pipeline(ctx, inputs, prefix, expert_model, num_units, num_classes,
+                  batch_normalization=False, channel_factor=1.0, **_):
+    """Frozen expert network + softmax 'prob' and argmax 'classification'.
+
+    ``batch_normalization`` defaults to False, like the reference's
+    hardcoded ``batchnorm=False``; eval-mode BN uses the imported moving
+    statistics when it is on."""
+    if expert_model == "fcn":
+        outputs = fcn(ctx, inputs, prefix, num_units, num_classes,
+                      batchnorm=batch_normalization,
+                      channel_factor=channel_factor)
+    elif expert_model == "adapnet":
+        raise NotImplementedError("AdapNet experts are not ported yet")
+    else:
+        raise UserWarning(f"ERROR: Expert Model {expert_model} not found")
+    outputs["prob"] = ll.softmax(outputs["score"])
+    # argmax of the raw score == argmax of its softmax (monotone)
+    outputs["classification"] = outputs["score"].argmax(-1)
+    return outputs
+
+
+def expert_pipelines(ctx, batch, modalities, config):
+    """Per-modality expert outputs, ``{modality: test_pipeline(...)}``."""
+    return {m: test_pipeline(ctx, batch[m], config["prefixes"][m], **config)
+            for m in modalities}
+
+
+class FusionModel(Estimator):
+    """Mixture-of-experts base.
+
+    Config:
+        prefixes: dict {modality: variable-name prefix} for the experts.
+        expert_model: 'fcn' (AdapNet experts are not ported yet).
+    """
+
+    def __init__(self, name=None, output_dir=None, **config):
+        self.modalities = list(config["prefixes"].keys())
+        Estimator.__init__(self, data_description=config.pop(
+            "data_description"), name=name, output_dir=output_dir,
+            **config)
+
+    def _variable_specs(self):
+        if self.config.get("expert_model") != "fcn":
+            raise NotImplementedError(
+                f"expert_model '{self.config.get('expert_model')}' is not "
+                "ported yet")
+        specs = []
+        for m in self.modalities:
+            specs += fcn_variable_specs(
+                self.config["prefixes"][m], self._input_channels(m),
+                self.config["num_units"], self.config["num_classes"],
+                batchnorm=self.config.get("batch_normalization", False),
+                channel_factor=self.config.get("channel_factor", 1.0))
+        return specs
+
+    def _fusion(self, expert_outputs):
+        """Fuse expert outputs into a dict with at least 'prediction'."""
+        raise NotImplementedError
+
+    def _test_outputs(self, ctx, batch):
+        expert_outputs = expert_pipelines(ctx, batch, self.modalities,
+                                          self.config)
+        out = self._fusion(expert_outputs)
+        # per-expert diagnostics for predict(output_attr=...)
+        for m in self.modalities:
+            out[f"{m}_prob"] = expert_outputs[m]["prob"]
+            out[f"{m}_classification"] = expert_outputs[m]["classification"]
+        return out
+
+    def import_expert_weights(self, weight_files, **kwargs):
+        """Import per-expert npz files: {modality: filepath} (each with its
+        prefix translated) or a single path for all."""
+        if isinstance(weight_files, str):
+            return self.import_weights(weight_files, **kwargs)
+        reports = {}
+        for modality, filepath in weight_files.items():
+            reports[modality] = self.import_weights(
+                filepath, translate_prefix=self.config["prefixes"][modality],
+                **kwargs)
+        return reports

@@ -1,0 +1,203 @@
+"""SimpleFCN: the VGG16-based fully-convolutional segmentation expert.
+
+Counterpart of the JAX package's ``models/simple_fcn.py`` (eval): VGG16 conv
+stack, 1x1 score convs on conv4_3 and conv5_3, frozen 4x4/stride-2
+bilinear deconv on score_conv5, added into 'fused'; decoder = frozen
+16x16/stride-8 bilinear deconv + 1x1 class score conv.
+
+``encoder``/``decoder``/``fcn`` are plain functions returning layer dicts,
+so fusion models build experts without expert model objects.
+``fcn_variable_specs`` lists the variables those functions read, under the
+same TF names, so a store can be made up front from a seed.
+"""
+
+import torch
+
+from modular_semantic_segmentation_torch.ops import init as initializers
+from modular_semantic_segmentation_torch.ops import layers as ll
+from modular_semantic_segmentation_torch.models.estimator import Estimator
+
+
+def _width(channel_factor):
+    return lambda w: max(1, int(w * channel_factor))
+
+
+def encoder_stem(ctx, inputs, prefix, batchnorm=True, channel_factor=1.0):
+    """conv1_1 .. conv2_1, the full/half-resolution thin-channel stem."""
+    params = {"batch_normalization": batchnorm}
+    c = _width(channel_factor)
+    with ctx.scope(prefix):
+        l = {}
+        l["conv1_1"] = ll.conv2d(ctx, inputs, c(64), 3, "conv1_1", **params)
+        l["conv1_2"] = ll.conv2d(ctx, l["conv1_1"], c(64), 3, "conv1_2",
+                                 **params)
+        l["pool1"] = ll.max_pool2d(ctx, l["conv1_2"], 2, 2)
+        l["conv2_1"] = ll.conv2d(ctx, l["pool1"], c(128), 3, "conv2_1",
+                                 **params)
+    return l
+
+
+def encoder_head(ctx, inputs, prefix, batchnorm=True, channel_factor=1.0):
+    """conv1_1 .. pool3. ``channel_factor`` scales every VGG16 width
+    (64..512); 1.0 is the reference architecture."""
+    params = {"batch_normalization": batchnorm}
+    c = _width(channel_factor)
+    l = encoder_stem(ctx, inputs, prefix, batchnorm=batchnorm,
+                     channel_factor=channel_factor)
+    with ctx.scope(prefix):
+        l["conv2_2"] = ll.conv2d(ctx, l["conv2_1"], c(128), 3, "conv2_2",
+                                 **params)
+        l["pool2"] = ll.max_pool2d(ctx, l["conv2_2"], 2, 2)
+        l["conv3_1"] = ll.conv2d(ctx, l["pool2"], c(256), 3, "conv3_1",
+                                 **params)
+        l["conv3_2"] = ll.conv2d(ctx, l["conv3_1"], c(256), 3, "conv3_2",
+                                 **params)
+        l["conv3_3"] = ll.conv2d(ctx, l["conv3_2"], c(256), 3, "conv3_3",
+                                 **params)
+        l["pool3"] = ll.max_pool2d(ctx, l["conv3_3"], 2, 2)
+    return l
+
+
+def encoder_tail(ctx, l, prefix, num_units, batchnorm=True,
+                 channel_factor=1.0):
+    """pool3 .. 'fused'. ``l`` is the layer dict from
+    :func:`encoder_head`; mutates and returns it. The JAX package's
+    MC-dropout sites are not ported (rate 0 in eval)."""
+    params = {"batch_normalization": batchnorm}
+    c = _width(channel_factor)
+    with ctx.scope(prefix):
+        l["conv4_1"] = ll.conv2d(ctx, l["pool3"], c(512), 3, "conv4_1",
+                                 **params)
+        l["conv4_2"] = ll.conv2d(ctx, l["conv4_1"], c(512), 3, "conv4_2",
+                                 **params)
+        l["conv4_3"] = ll.conv2d(ctx, l["conv4_2"], c(512), 3, "conv4_3",
+                                 **params)
+        l["pool4"] = ll.max_pool2d(ctx, l["conv4_3"], 2, 2)
+        l["conv5_1"] = ll.conv2d(ctx, l["pool4"], c(512), 3, "conv5_1",
+                                 **params)
+        l["conv5_2"] = ll.conv2d(ctx, l["conv5_1"], c(512), 3, "conv5_2",
+                                 **params)
+        l["conv5_3"] = ll.conv2d(ctx, l["conv5_2"], c(512), 3, "conv5_3",
+                                 **params)
+        score_conv4 = ll.conv2d(ctx, l["conv4_3"], num_units, 1,
+                                "score_conv4", **params)
+        score_conv5 = ll.conv2d(ctx, l["conv5_3"], num_units, 1,
+                                "score_conv5", **params)
+        upscore_conv5 = ll.deconv2d(ctx, score_conv5, num_units, 4,
+                                    "upscore_conv5", strides=2,
+                                    activation=torch.relu,
+                                    batch_normalization=batchnorm)
+        l["fused"] = score_conv4 + upscore_conv5
+    return l
+
+
+def encoder(ctx, inputs, prefix, num_units, batchnorm=True,
+            channel_factor=1.0):
+    """VGG16 image encoder; the encoding has key 'fused'."""
+    l = encoder_head(ctx, inputs, prefix, batchnorm=batchnorm,
+                     channel_factor=channel_factor)
+    return encoder_tail(ctx, l, prefix, num_units, batchnorm=batchnorm,
+                        channel_factor=channel_factor)
+
+
+def decoder(ctx, features, prefix, num_units, num_classes, batchnorm=True):
+    """Frozen 16x16/stride-8 bilinear upsampling + 1x1 class score conv
+    (no activation before the softmax)."""
+    with ctx.scope(prefix):
+        upscore = ll.deconv2d(ctx, features, num_units, 16, "upscore",
+                              strides=8, activation=torch.relu,
+                              batch_normalization=batchnorm)
+        score = ll.conv2d(ctx, upscore, num_classes, 1, "score",
+                          activation=None, batch_normalization=batchnorm)
+    return {"upscore": upscore, "score": score}
+
+
+def fcn(ctx, inputs, prefix, num_units, num_classes, batchnorm=True,
+        channel_factor=1.0):
+    """Full FCN: encoder + decoder."""
+    layers = encoder(ctx, inputs, prefix, num_units, batchnorm=batchnorm,
+                     channel_factor=channel_factor)
+    layers.update(decoder(ctx, layers["fused"], prefix, num_units,
+                          num_classes, batchnorm=batchnorm))
+    return layers
+
+
+def _layer_specs(scope, kernel_shape, out_ch, batchnorm, bias=True,
+                 kernel_init=initializers.glorot_uniform):
+    specs = [(f"{scope}/kernel", kernel_shape, kernel_init)]
+    if bias:
+        specs.append((f"{scope}/bias", (out_ch,), initializers.zeros))
+    if batchnorm:
+        specs += [(f"{scope}/gamma", (out_ch,), initializers.ones),
+                  (f"{scope}/beta", (out_ch,), initializers.zeros),
+                  (f"{scope}/moving_mean", (out_ch,), initializers.zeros),
+                  (f"{scope}/moving_variance", (out_ch,), initializers.ones)]
+    return specs
+
+
+def fcn_variable_specs(prefix, in_channels, num_units, num_classes,
+                       batchnorm=True, channel_factor=1.0):
+    """[(name, shape, initializer)] of every variable :func:`fcn` reads."""
+    c = _width(channel_factor)
+    convs = [("conv1_1", in_channels, c(64)), ("conv1_2", c(64), c(64)),
+             ("conv2_1", c(64), c(128)), ("conv2_2", c(128), c(128)),
+             ("conv3_1", c(128), c(256)), ("conv3_2", c(256), c(256)),
+             ("conv3_3", c(256), c(256)), ("conv4_1", c(256), c(512)),
+             ("conv4_2", c(512), c(512)), ("conv4_3", c(512), c(512)),
+             ("conv5_1", c(512), c(512)), ("conv5_2", c(512), c(512)),
+             ("conv5_3", c(512), c(512))]
+    specs = []
+    for name, cin, cout in convs:
+        specs += _layer_specs(f"{prefix}/{name}", (3, 3, cin, cout), cout,
+                              batchnorm)
+    for name in ("score_conv4", "score_conv5"):
+        specs += _layer_specs(f"{prefix}/{name}", (1, 1, c(512), num_units),
+                              num_units, batchnorm)
+    for name, k in (("upscore_conv5", 4), ("upscore", 16)):
+        specs += _layer_specs(f"{prefix}/{name}",
+                              (k, k, num_units, num_units), num_units,
+                              batchnorm, bias=False,
+                              kernel_init=initializers.
+                              bilinear_filter_initializer)
+    specs += _layer_specs(f"{prefix}/score", (1, 1, num_units, num_classes),
+                          num_classes, batchnorm)
+    return specs
+
+
+class SimpleFCN(Estimator):
+    """FCN expert model.
+
+    Args:
+        prefix: variable-name prefix (the modality column name).
+        data_description: tuple from dataset.get_data_description().
+        modality: key of the input modality in data batches.
+        num_units: feature units in the FCN.
+        batch_normalization, channel_factor: see :func:`fcn`.
+    """
+
+    def __init__(self, prefix, data_description, modality, output_dir=None,
+                 **config):
+        self.prefix = prefix
+        self.modality = modality
+        standard_config = {"batch_normalization": True}
+        standard_config.update(config)
+        Estimator.__init__(self, data_description, output_dir=output_dir,
+                           **standard_config)
+
+    def _variable_specs(self):
+        return fcn_variable_specs(
+            self.prefix, self._input_channels(self.modality),
+            self.config["num_units"], self.config["num_classes"],
+            batchnorm=self.config["batch_normalization"],
+            channel_factor=self.config.get("channel_factor", 1.0))
+
+    def _fcn(self, ctx, x):
+        return fcn(ctx, x, self.prefix, self.config["num_units"],
+                   self.config["num_classes"],
+                   batchnorm=self.config["batch_normalization"],
+                   channel_factor=self.config.get("channel_factor", 1.0))
+
+    def _test_outputs(self, ctx, batch):
+        layers = self._fcn(ctx, batch[self.modality])
+        prob = ll.softmax(layers["score"])
+        return {"prob": prob, "prediction": prob.argmax(-1)}

@@ -1,0 +1,73 @@
+"""Initializers, as seeded numpy, and a variable store built from specs.
+
+Mirrors the JAX package's ``ops/init.py``: Glorot-uniform conv kernels,
+zero biases, BN ones/zeros and the frozen bilinear-interpolation kernel of
+the transposed convolutions. The random numbers come from a numpy
+``RandomState``, so full-width weights are made from a seed without any
+file (they differ from the JAX package's ``jax.random`` draws; tests carry
+JAX weights across with ``models.params.from_jax_variables``).
+
+An initializer is ``fn(rng, shape) -> np.ndarray`` (float32).
+"""
+
+import numpy as np
+import torch
+
+
+def zeros(rng, shape):
+    return np.zeros(shape, np.float32)
+
+
+def ones(rng, shape):
+    return np.ones(shape, np.float32)
+
+
+def glorot_uniform(rng, shape):
+    """TF glorot/xavier uniform: limit = sqrt(6 / (fan_in + fan_out)).
+
+    For conv kernels [H, W, in, out]: fan_in = H*W*in, fan_out = H*W*out.
+    """
+    if len(shape) >= 2:
+        receptive = int(np.prod(shape[:-2])) if len(shape) > 2 else 1
+        fan_in = receptive * shape[-2]
+        fan_out = receptive * shape[-1]
+    else:
+        fan_in = fan_out = int(np.prod(shape))
+    limit = np.sqrt(6.0 / (fan_in + fan_out))
+    return rng.uniform(-limit, limit, size=shape).astype(np.float32)
+
+
+def bilinear_filter(shape):
+    """Frozen bilinear-interpolation kernel for transposed convolution.
+
+    ``shape`` is [height, width, out_channels, in_channels] (TF
+    conv2d_transpose layout, the npz contract). The kernel is diagonal
+    over channels: channel i upsamples channel i.
+    """
+    height, width = shape[0], shape[1]
+    factor = np.ceil(width / 2.0)
+    center = (2 * factor - 1 - factor % 2) / (2.0 * factor)
+    yy, xx = np.meshgrid(np.arange(height), np.arange(width), indexing="ij")
+    bilinear = ((1 - np.abs(yy / factor - center)) *
+                (1 - np.abs(xx / factor - center)))
+    weights = np.zeros(shape, np.float32)
+    diag = min(shape[2], shape[3])
+    for i in range(diag):
+        weights[:, :, i, i] = bilinear
+    return weights
+
+
+def bilinear_filter_initializer(rng, shape):
+    return bilinear_filter(shape)
+
+
+def build_variables(specs, seed=0, device="cpu"):
+    """Make a variable store from ``[(name, shape, initializer), ...]``.
+
+    Initializers draw from one ``np.random.RandomState(seed)`` in the order
+    of ``specs``, so a seed and a spec list fix every weight. Returns a
+    dict name -> float32 tensor on ``device``.
+    """
+    rng = np.random.RandomState(seed)
+    return {name: torch.from_numpy(init(rng, tuple(shape))).to(device)
+            for name, shape, init in specs}

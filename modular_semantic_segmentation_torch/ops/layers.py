@@ -1,0 +1,199 @@
+"""Eval-mode layers in PyTorch, with the JAX package's TF1 semantics.
+
+Counterpart of the JAX package's ``ops/layers.py`` (float path only):
+    * conv2d: TF SAME padding (asymmetric at stride 2: the extra pad goes
+      to the trailing side), dilation, bias, and conv -> batch-norm ->
+      activation ordering;
+    * batch_norm: eval mode from the moving statistics, eps 1e-3, in f32;
+    * deconv2d: transposed conv with a frozen kernel stored in the TF
+      conv2d_transpose layout [H, W, out, in]; channel-diagonal kernels go
+      through ``ops/fast_upsample.diagonal_upsample``, others through a
+      dense ``conv_transpose2d``;
+    * max_pool2d (VALID), softmax, log_softmax.
+
+Tensors are NHWC at every function here. A convolution sees the
+``permute(0, 3, 1, 2)`` view: an NCHW tensor in channels-last memory, which
+cuDNN and the CPU kernels take without a copy. Kernels are stored HWIO
+(the npz contract) and permuted to PyTorch's [out, in, kh, kw] per call.
+The plain large convolutions stay ``torch.nn.functional`` calls, as the
+JAX package leaves them to XLA.
+"""
+
+import torch
+import torch.nn.functional as F
+
+from modular_semantic_segmentation_torch.ops.fast_upsample import (
+    diagonal_upsample, same_transpose_crop)
+
+# TF tf.layers.batch_normalization default.
+BN_EPSILON = 1e-3
+
+
+def configure_float32():
+    """Run float32 convolutions and matmuls on the card in full float32.
+
+    PyTorch's defaults differ: cuDNN convolutions may use TF32 (about three
+    decimal digits), matmuls may not. The float32 path is held against the
+    JAX package's float32 numbers, so both switches are set off here,
+    explicitly. The bfloat16 path is not affected.
+    """
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _pair(v):
+    if isinstance(v, (tuple, list)):
+        return tuple(int(x) for x in v)
+    return (int(v), int(v))
+
+
+def _same_pads(size, kernel, stride, dilation):
+    """TF SAME padding (leading, trailing) along one axis."""
+    reach = dilation * (kernel - 1) + 1
+    out = -(-size // stride)
+    total = max((out - 1) * stride + reach - size, 0)
+    return total // 2, total - total // 2
+
+
+def _check_shape(value, shape, name):
+    if tuple(value.shape) != tuple(shape):
+        raise ValueError(f"variable '{name}' has shape {tuple(value.shape)},"
+                         f" the layer needs {tuple(shape)}")
+
+
+def batch_norm(ctx, x, name):
+    """Eval-mode TF1 batch normalization over the channel (last) axis.
+
+    Variables ``<name>/{gamma,beta,moving_mean,moving_variance}``. The
+    affine runs in float32 and the result is cast back to ``x.dtype``.
+    """
+    with ctx.scope(name):
+        gamma = ctx.get("gamma")
+        beta = ctx.get("beta")
+        mean = ctx.get("moving_mean")
+        var = ctx.get("moving_variance")
+    inv = torch.rsqrt(var + BN_EPSILON) * gamma
+    out = x.float() * inv + (beta - mean * inv)
+    return out.to(x.dtype)
+
+
+def _epilogue(ctx, out, name, activation, batch_normalization):
+    out = out.to(ctx.compute_dtype)
+    if batch_normalization:
+        out = batch_norm(ctx, out, name)
+    if activation is not None:
+        out = activation(out)
+    return out
+
+
+def conv2d(ctx, x, filters, kernel_size, name, strides=1, dilation_rate=1,
+           activation=torch.relu, batch_normalization=False):
+    """2-D convolution, TF SAME padding, with bias and optional
+    batch-norm-then-activation.
+
+    Order as in the JAX package: conv + bias (in float32) -> cast to the
+    compute dtype -> [BN] -> activation. Kernel layout [H, W, in, out].
+    """
+    kh, kw = _pair(kernel_size)
+    sh, sw = _pair(strides)
+    dh, dw = _pair(dilation_rate)
+    n, h, w, in_ch = x.shape
+    dtype = ctx.compute_dtype
+    with ctx.scope(name):
+        kernel = ctx.get("kernel")
+        _check_shape(kernel, (kh, kw, in_ch, int(filters)),
+                     ctx.full_name("kernel"))
+        xd = x.to(dtype)
+        ph = _same_pads(h, kh, sh, dh)
+        pw = _same_pads(w, kw, sw, dw)
+        if ph[0] == ph[1] and pw[0] == pw[1]:
+            pad = (ph[0], pw[0])
+        else:
+            # asymmetric (strided) SAME: pad the NHWC tensor explicitly;
+            # PyTorch's padding='same' refuses stride > 1
+            xd = F.pad(xd, (0, 0, pw[0], pw[1], ph[0], ph[1]))
+            pad = (0, 0)
+        out = F.conv2d(xd.permute(0, 3, 1, 2),
+                       kernel.permute(3, 2, 0, 1).to(dtype),
+                       stride=(sh, sw), padding=pad, dilation=(dh, dw))
+        # float32 promotion, as jnp's bf16 + f32 in the JAX package
+        out = out.permute(0, 2, 3, 1) + ctx.get("bias")
+    return _epilogue(ctx, out, name, activation, batch_normalization)
+
+
+def _channel_diagonal(ctx, kernel):
+    """True when the [k, k, C, C] kernel has no off-diagonal weight.
+
+    The answer is kept in ``ctx.diagonal_cache`` beside the kernel it was
+    computed for, so a frame served with the same kernel does not wait for
+    the device to check again."""
+    key = ctx.full_name("kernel")
+    cached = ctx.diagonal_cache.get(key)
+    if cached is not None and cached[0] is kernel:
+        return cached[1]
+    idx = torch.arange(kernel.shape[2], device=kernel.device)
+    off = kernel.clone()
+    off[:, :, idx, idx] = 0.0
+    diagonal = not bool(off.any())
+    ctx.diagonal_cache[key] = (kernel, diagonal)
+    return diagonal
+
+
+def deconv2d(ctx, x, filters, kernel_size, name, strides=1, activation=None,
+             batch_normalization=True):
+    """Transposed convolution with a frozen kernel [H, W, out, in], no bias.
+
+    TF ``conv2d_transpose`` semantics (the gradient of a forward conv with
+    this HWIO kernel), SAME padding giving out = in * stride. A
+    channel-diagonal kernel (the frozen bilinear initializer) takes the
+    depthwise path.
+    """
+    kh, kw = _pair(kernel_size)
+    sh, sw = _pair(strides)
+    n, h, w, in_ch = x.shape
+    dtype = ctx.compute_dtype
+    if kh < sh or kw < sw:
+        raise NotImplementedError("SAME transposed conv needs kernel >= "
+                                  "stride")
+    with ctx.scope(name):
+        kernel = ctx.get("kernel")
+        _check_shape(kernel, (kh, kw, int(filters), in_ch),
+                     ctx.full_name("kernel"))
+        if (int(filters) == in_ch and kh == kw and sh == sw
+                and _channel_diagonal(ctx, kernel)):
+            idx = torch.arange(in_ch, device=kernel.device)
+            diag = kernel[:, :, idx, idx]
+            out = diagonal_upsample(x.to(dtype), diag.to(dtype), sh)
+        else:
+            # dense fallback: PyTorch's conv_transpose2d weight is
+            # [in, out, kh, kw], the same gradient-of-conv semantics
+            out = F.conv_transpose2d(x.to(dtype).permute(0, 3, 1, 2),
+                                     kernel.permute(3, 2, 0, 1).to(dtype),
+                                     stride=(sh, sw))
+            lo_h = same_transpose_crop(kh, sh)
+            lo_w = same_transpose_crop(kw, sw)
+            out = out[:, :, lo_h:lo_h + h * sh, lo_w:lo_w + w * sw]
+            out = out.permute(0, 2, 3, 1)
+    return _epilogue(ctx, out, name, activation, batch_normalization)
+
+
+def max_pool2d(ctx, x, pool_size, strides):
+    """Max pooling with TF layers' default VALID padding."""
+    out = F.max_pool2d(x.permute(0, 3, 1, 2), _pair(pool_size),
+                       _pair(strides))
+    return out.permute(0, 2, 3, 1)
+
+
+def log_softmax(x):
+    """Numerically stable log-softmax over the last axis, the JAX
+    package's formula."""
+    m = torch.amax(x, dim=-1, keepdim=True)
+    d = x - m
+    return d - torch.log(torch.sum(torch.exp(d), dim=-1, keepdim=True))
+
+
+def softmax(x):
+    """Softmax over the last axis, the JAX package's formula."""
+    m = torch.amax(x, dim=-1, keepdim=True)
+    e = torch.exp(x - m)
+    return e / torch.sum(e, dim=-1, keepdim=True)

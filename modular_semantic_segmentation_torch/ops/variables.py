@@ -1,0 +1,77 @@
+"""Flat, name-addressed variable store for the eval-mode networks.
+
+The JAX package keeps every variable in one flat ``{tf_name: array}`` dict
+and reads it through a scoped context (``ops/variables.Ctx``), so npz weight
+files are keyed by TF names like ``rgb/conv1_1/kernel``. The port keeps the
+same contract with a ``{tf_name: torch.Tensor}`` dict. It is eval only:
+variables are made up front from a list of specs (``ops/init.py``), never
+by tracing the network.
+"""
+
+from contextlib import contextmanager
+
+import torch
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def resolve_device(device):
+    """``torch.device`` for ``device``; raises when CUDA is asked for and
+    there is no card, instead of running somewhere else."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device='cuda' was requested but torch.cuda.is_available() is "
+            "False; pass device='cpu' to run on the CPU")
+    return device
+
+
+def resolve_dtype(compute_dtype):
+    """'float32' | 'bfloat16' -> torch dtype."""
+    try:
+        return _DTYPES[compute_dtype]
+    except KeyError:
+        raise ValueError(f"unknown compute_dtype '{compute_dtype}'") from None
+
+
+class Ctx:
+    """Variable context threaded through the functional layer calls.
+
+    Args:
+        variables: flat dict TF name -> tensor.
+        compute_dtype: torch dtype inside convolutions; variables stay
+            float32.
+        diagonal_cache: dict the caller keeps across calls, in which
+            ``deconv2d`` remembers whether a kernel is channel-diagonal
+            (so the check does not wait for the device on every frame).
+    """
+
+    def __init__(self, variables, compute_dtype=torch.float32,
+                 diagonal_cache=None):
+        self.variables = variables
+        self.compute_dtype = compute_dtype
+        self.diagonal_cache = ({} if diagonal_cache is None
+                               else diagonal_cache)
+        self._scope = []
+
+    @contextmanager
+    def scope(self, name):
+        if name:
+            self._scope.append(str(name))
+        try:
+            yield self
+        finally:
+            if name:
+                self._scope.pop()
+
+    def full_name(self, name):
+        return "/".join(self._scope + [name])
+
+    def get(self, name):
+        """The variable ``<scope>/name``; raises KeyError if missing."""
+        full = self.full_name(name)
+        try:
+            return self.variables[full]
+        except KeyError:
+            raise KeyError(f"Variable '{full}' not found (available: "
+                           f"{len(self.variables)} vars)") from None

@@ -7,14 +7,19 @@ setup(
                  "segmentation (JAX/XLA/Pallas)"),
     packages=find_packages(
         include=["modular_semantic_segmentation_tpu",
-                 "modular_semantic_segmentation_tpu.*", "experiments"]),
+                 "modular_semantic_segmentation_tpu.*", "experiments",
+                 "modular_semantic_segmentation_torch",
+                 "modular_semantic_segmentation_torch.*"]),
     python_requires=">=3.10",
     install_requires=[
         "jax", "optax", "numpy", "scipy", "scikit-learn", "opencv-python",
         "pyyaml", "pandas", "tqdm",
     ],
+    # the PyTorch/CUDA port needs torch, numpy and scipy only
+    extras_require={"torch": ["torch", "numpy", "scipy"]},
     package_data={
         "modular_semantic_segmentation_tpu": ["native/Makefile",
                                               "native/*.cc"],
+        "modular_semantic_segmentation_torch": ["csrc/*.cu"],
     },
 )

@@ -1,0 +1,126 @@
+"""Guards of what the GPU machine needs from the port and chip_smoke.py.
+
+That machine has PyTorch, numpy and scipy but no JAX and none of the JAX
+package's host dependencies (cv2, sklearn, yaml, pandas, tqdm). The port
+and ``chip_smoke.py`` must import without them and without loading any
+module of the JAX package; ``chip_smoke.py`` must fail, and print no
+result line, where there is no CUDA card or no repository around it.
+"""
+
+import ast
+import json
+import os
+import pkgutil
+import shutil
+import subprocess
+import sys
+
+import pytest
+
+import modular_semantic_segmentation_torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SMOKE = os.path.join(REPO, "chip_smoke.py")
+UNAVAILABLE = ("jax", "jaxlib", "cv2", "sklearn", "yaml", "pandas", "tqdm")
+
+
+def _port_modules():
+    package = modular_semantic_segmentation_torch
+    return [package.__name__] + [
+        info.name for info in pkgutil.walk_packages(
+            package.__path__, prefix=package.__name__ + ".")]
+
+
+def _imports(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module)
+    return names
+
+
+def _forbidden(name):
+    top = name.split(".")[0]
+    return top in UNAVAILABLE or top == "modular_semantic_segmentation_tpu"
+
+
+def test_port_imports_without_jax_and_its_host_deps():
+    modules = _port_modules()
+    assert len(modules) > 15
+    script = (
+        "import sys\n"
+        f"for name in {UNAVAILABLE!r}:\n"
+        "    sys.modules[name] = None\n"
+        "import importlib\n"
+        f"for name in {modules!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] == 'modular_semantic_segmentation_tpu']\n"
+        "assert not bad, bad\n"
+        "print('ok', len(sys.modules))\n")
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def test_port_sources_import_no_jax():
+    package_dir = os.path.dirname(modular_semantic_segmentation_torch.__file__)
+    for root, _, files in os.walk(package_dir):
+        for name in files:
+            if name.endswith(".py"):
+                bad = sorted(filter(_forbidden, _imports(
+                    os.path.join(root, name))))
+                assert not bad, f"{name} imports {bad}"
+
+
+def test_chip_smoke_imports_no_jax():
+    imports = _imports(SMOKE)
+    assert "torch" in imports
+    assert not sorted(filter(_forbidden, imports))
+
+
+def _run_smoke(cwd):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="-1")
+    return subprocess.run([sys.executable, SMOKE if cwd == REPO
+                           else os.path.join(cwd, "chip_smoke.py")],
+                          cwd=cwd, env=env, capture_output=True, text=True,
+                          timeout=300)
+
+
+def _assert_failed_without_result(out):
+    assert out.returncode != 0
+    for line in out.stdout.splitlines():
+        if line.startswith("{"):
+            assert "ok" not in json.loads(line), line
+
+
+def test_chip_smoke_fails_without_a_card():
+    out = _run_smoke(REPO)
+    _assert_failed_without_result(out)
+    assert "no CUDA device" in out.stderr
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(SMOKE, tmp_path / "chip_smoke.py")
+    _assert_failed_without_result(_run_smoke(str(tmp_path)))
+
+
+def test_models_refuse_cuda_without_a_card():
+    """device='cuda' (the default) raises here instead of running on the
+    CPU."""
+    import numpy as np
+    import torch
+    from modular_semantic_segmentation_torch.models import get_model
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    description = ({"rgb": np.float32},
+                   {"rgb": (None, None, 3), "labels": (None, None)}, 3)
+    with pytest.raises(RuntimeError, match="cuda"):
+        get_model("fcn")(prefix="rgb", modality="rgb",
+                         data_description=description, num_units=2,
+                         channel_factor=0.125)

@@ -1,0 +1,131 @@
+"""The port's CUDA kernels against their plain versions, on a CUDA card.
+
+Marked ``gpu``: without a card each test skips. This file imports neither
+JAX nor the JAX package, so it also runs where JAX is not installed:
+
+    CUDA_VISIBLE_DEVICES=0 python -m pytest --noconftest -m gpu \
+        tests/test_torch_gpu.py
+
+(``tests/conftest.py`` imports JAX and hides CUDA devices from the CPU
+suite; ``--noconftest`` skips it.) Confusion counts must be exact;
+Dirichlet labels may differ from the plain version only where the plain
+scores of the two labels are within 1e-5 relative (argmax ties).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from modular_semantic_segmentation_torch.ops.cuda import build
+from modular_semantic_segmentation_torch.ops.cuda import confusion
+from modular_semantic_segmentation_torch.ops.cuda import dirichlet
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    build.build()
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,shape", [(14, (2, 96, 48)), (3, (1, 1000)),
+                                     (40, (5, 333))])
+def test_confusion_kernel_matches_plain(cuda, k, shape):
+    gen = torch.Generator(device=cuda).manual_seed(k)
+    preds = torch.randint(-1, k + 2, shape, generator=gen, device=cuda)
+    labels = torch.randint(-2, k + 3, shape, generator=gen, device=cuda,
+                           dtype=torch.int32)
+    before = confusion.KERNEL.launches
+    got = confusion.confusion_matrix(preds, labels, k)
+    torch.cuda.synchronize()
+    assert confusion.KERNEL.launches == before + 1
+    assert torch.equal(got.cpu(), confusion.confusion_matrix_plain(
+        preds.cpu(), labels.cpu(), k))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("experts,k,pixels", [(2, 14, 5000), (3, 20, 777)])
+def test_dirichlet_kernel_matches_plain(cuda, dtype, experts, k, pixels):
+    rng = np.random.RandomState(k)
+    probs = np.stack([rng.dirichlet(np.ones(k), size=pixels)
+                      for _ in range(experts)]).astype(np.float32)
+    alphas = [rng.rand(k, k) * 4 + 0.5 for _ in range(experts)]
+    coeffs, bias = dirichlet.dirichlet_tables(
+        alphas, rng.dirichlet(np.ones(k)), 0.7, k)
+    stacked = torch.from_numpy(probs).to(cuda, dtype)
+    coeffs = torch.from_numpy(coeffs).to(cuda)
+    bias = torch.from_numpy(bias).to(cuda)
+    before = dirichlet.KERNEL.launches
+    got = dirichlet.dirichlet_label(stacked, coeffs, bias)
+    torch.cuda.synchronize()
+    assert dirichlet.KERNEL.launches == before + 1
+    scores = dirichlet.dirichlet_scores_plain(stacked, coeffs, bias)
+    best = scores.max(dim=-1).values
+    picked = scores.gather(1, got.long()[:, None])[:, 0]
+    assert bool(((best - picked) <= 1e-5 * best.abs()).all())
+
+
+def _small_fusion(name, device, **config):
+    from modular_semantic_segmentation_torch.models import get_model
+    description = (
+        {"labels": np.int32, "rgb": np.float32, "depth": np.float32},
+        {"rgb": (None, None, 3), "depth": (None, None, 1),
+         "labels": (None, None)}, 6)
+    return get_model(name)(
+        data_description=description, num_units=4, channel_factor=0.25,
+        expert_model="fcn", prefixes={"rgb": "rgb", "depth": "depth"},
+        device=device, **config)
+
+
+def _frames(n=3):
+    rng = np.random.RandomState(0)
+    return {"rgb": (rng.rand(n, 64, 96, 3) * 255).astype(np.float32),
+            "depth": rng.rand(n, 64, 96, 1).astype(np.float32),
+            "labels": rng.randint(-1, 6, (n, 64, 96)).astype(np.int32)}
+
+
+@pytest.fixture
+def deterministic_cudnn():
+    """cuDNN restricted to deterministic algorithms, so two forwards of
+    the same frame give the same labels."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    yield
+    torch.backends.cudnn.deterministic = saved
+
+
+@pytest.mark.gpu
+def test_score_and_serving_on_the_card(cuda, deterministic_cudnn):
+    """The confusion kernel counts in ``score`` exactly what the plain
+    version counts for the same forward; the server's pinned,
+    event-ordered readback gives the model's own outputs, in order, with
+    a padded tail group; the Dirichlet model launches its kernel."""
+    from modular_semantic_segmentation_torch.serving import InferenceServer
+    rng = np.random.RandomState(1)
+    cms = {m: rng.rand(6, 6) + np.eye(6) * 5 for m in ("rgb", "depth")}
+    params = {m: rng.rand(6, 6) * 4 + 0.5 for m in ("rgb", "depth")}
+    params["class_counts"] = rng.randint(100, 1000, 6)
+    data = _frames()
+    for net in (_small_fusion("bayes_mix", cuda, confusion_matrices=cms,
+                              compute_dtype="bfloat16"),
+                _small_fusion("dirichlet_mix", cuda, dirichlet_params=params,
+                              use_pallas=True)):
+        before = (confusion.KERNEL.launches, dirichlet.KERNEL.launches)
+        out = net._eval_step(net._batch_to_device(data))
+        want = confusion.confusion_matrix_plain(
+            out["prediction"].cpu(), torch.from_numpy(data["labels"]), 6)
+        assert torch.equal(out["confusion_matrix"].cpu(), want)
+        _, cm = net.score(data)
+        assert cm.sum() == (data["labels"] >= 0).sum()
+        predictions = net.predict(data)
+        frames = [{"rgb": data["rgb"][i], "depth": data["depth"][i]}
+                  for i in range(3)]
+        served = InferenceServer(net, unroll=2).predict(frames)
+        np.testing.assert_array_equal(served, predictions)
+        assert confusion.KERNEL.launches - before[0] == 1 + 3
+        if net.config.get("use_pallas"):
+            # the eval step, score, predict, and two groups of two frames
+            assert dirichlet.KERNEL.launches - before[1] == 1 + 3 + 3 + 4
