@@ -24,7 +24,7 @@ CSRC_DIR = os.path.join(_PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(_PACKAGE_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-KERNEL_SOURCES = ("confusion", "dirichlet")
+KERNEL_SOURCES = ("confusion", "dirichlet", "stem_conv")
 
 
 def find_nvcc():

@@ -7,7 +7,8 @@
     * Dirichlet: per (expert, class) a Dirichlet over the expert's softmax
       simplex; the per-pixel log-likelihood is a [pixels, K] @ [K, C]
       contraction. ``dirichlet_fusion`` is the plain form; the fused label
-      in one pass is the kernel of ``ops/cuda/dirichlet.py``.
+      in one pass is the kernel of ``ops/cuda/dirichlet.py``. Its fit
+      starts from ``dirichlet_sufficient_statistics``.
 
 Host-side statistics (priors, conditionals, decision tables) are numpy in
 float64, as in the JAX package; per-pixel work is PyTorch on the device
@@ -164,3 +165,31 @@ def dirichlet_fusion(probs, alphas, prior, sigma=1.0):
     prior = torch.as_tensor(np.asarray(prior, np.float32),
                             device=fused.device)
     return fused + torch.log(1e-20 + prior)
+
+
+def dirichlet_sufficient_statistics(probs, labels, num_classes, eps=1e-10):
+    """Per-true-class sums of log expert probabilities, on the device of
+    ``probs``.
+
+    For class c: ss[c, k] = sum over pixels with label c of log(eps + p_k).
+    Pixels whose label is < 0 or >= C count nowhere, as in the JAX
+    package's one-hot contraction, whose one-hot row is zero for them;
+    here they are summed into a dropped row C by ``index_add_``.
+
+    Args:
+        probs: [..., K] expert probabilities.
+        labels: [...] integer labels.
+    Returns:
+        (ss [C, K] float32, class_counts [C] float32)
+    """
+    k = probs.shape[-1]
+    log_p = torch.log(eps + probs.reshape(-1, k).float())
+    flat_l = labels.reshape(-1).long().to(log_p.device)
+    index = torch.where((flat_l >= 0) & (flat_l < num_classes), flat_l,
+                        num_classes)
+    ss = torch.zeros((num_classes + 1, k), dtype=torch.float32,
+                     device=log_p.device).index_add_(0, index, log_p)
+    counts = torch.zeros(num_classes + 1, dtype=torch.float32,
+                         device=log_p.device).index_add_(
+        0, index, torch.ones_like(index, dtype=torch.float32))
+    return ss[:num_classes], counts[:num_classes]

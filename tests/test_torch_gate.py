@@ -78,6 +78,20 @@ def test_port_sources_import_no_jax():
                 assert not bad, f"{name} imports {bad}"
 
 
+def test_every_kernel_source_is_built():
+    """``build()`` (which chip_smoke.py runs) compiles every ``csrc/*.cu``,
+    the stem conv of the probe path among them, and each wrapper's
+    library is one of them."""
+    from modular_semantic_segmentation_torch.ops.cuda import (
+        build, confusion, dirichlet, stem_conv)
+    sources = sorted(name[:-3] for name in os.listdir(build.CSRC_DIR)
+                     if name.endswith(".cu"))
+    assert sorted(build.KERNEL_SOURCES) == sources
+    assert "stem_conv" in sources
+    for module in (confusion, dirichlet, stem_conv):
+        assert module.KERNEL.source in sources
+
+
 def test_chip_smoke_imports_no_jax():
     imports = _imports(SMOKE)
     assert "torch" in imports

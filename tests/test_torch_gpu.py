@@ -9,7 +9,10 @@ JAX nor the JAX package, so it also runs where JAX is not installed:
 (``tests/conftest.py`` imports JAX and hides CUDA devices from the CPU
 suite; ``--noconftest`` skips it.) Confusion counts must be exact;
 Dirichlet labels may differ from the plain version only where the plain
-scores of the two labels are within 1e-5 relative (argmax ties).
+scores of the two labels are within 1e-5 relative (argmax ties); the stem
+conv, bfloat16 out, within 1e-2 of the largest plain value; the Dirichlet
+sufficient statistics on the card within rtol 1e-4 of the CPU's (float32
+sums in another order).
 """
 
 import numpy as np
@@ -19,6 +22,7 @@ import torch
 from modular_semantic_segmentation_torch.ops.cuda import build
 from modular_semantic_segmentation_torch.ops.cuda import confusion
 from modular_semantic_segmentation_torch.ops.cuda import dirichlet
+from modular_semantic_segmentation_torch.ops.cuda import stem_conv
 
 
 @pytest.fixture
@@ -66,6 +70,65 @@ def test_dirichlet_kernel_matches_plain(cuda, dtype, experts, k, pixels):
     best = scores.max(dim=-1).values
     picked = scores.gather(1, got.long()[:, None])[:, 0]
     assert bool(((best - picked) <= 1e-5 * best.abs()).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch,height,width,cin,cout",
+                         [(1, 768, 384, 64, 64), (2, 37, 53, 16, 24),
+                          (1, 9, 130, 128, 136)])
+def test_stem_conv_kernel_matches_plain(cuda, batch, height, width, cin,
+                                        cout):
+    before = stem_conv.KERNEL.launches
+    out = stem_conv.probe(height, width, cin, cout, batch=batch,
+                          timings=False)
+    torch.cuda.synchronize()
+    assert stem_conv.KERNEL.launches == before + 1
+    assert out["max_abs_err"] <= 1e-2 * out["scale"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cin,error,match", [
+    (8, ValueError, "multiple of 16"),
+    (144, RuntimeError, "failed to launch")])
+def test_stem_conv_raises_on_unsupported_cin(cuda, cin, error, match):
+    """Cin 8 fails the wrapper's check; Cin 144 passes it, but its weights
+    do not fit a block's shared memory and the launcher refuses it. A
+    launch after the refusal still succeeds."""
+    x = torch.zeros((1, 8, 8, cin), dtype=torch.bfloat16, device=cuda)
+    kernel = torch.zeros((3, 3, cin, 16), dtype=torch.bfloat16, device=cuda)
+    bias = torch.zeros(16, device=cuda)
+    with pytest.raises(error, match=match):
+        stem_conv.stem_conv_nhwc(x, kernel, bias)
+    out = stem_conv.probe(8, 24, 16, 8, device=cuda, timings=False)
+    assert out["max_abs_err"] <= 1e-2 * out["scale"]
+
+
+@pytest.mark.gpu
+def test_trace_writes_a_chrome_trace_with_the_kernel(cuda, tmp_path):
+    from modular_semantic_segmentation_torch.utils.profiling import trace
+    x = torch.randn((1, 16, 32, 16), device=cuda, dtype=torch.bfloat16)
+    kernel = torch.randn((3, 3, 16, 8), device=cuda, dtype=torch.bfloat16)
+    with trace(str(tmp_path)) as prof:
+        stem_conv.stem_conv_nhwc(x, kernel, torch.zeros(8, device=cuda))
+    assert any("stem_conv_kernel" in e.key for e in prof.key_averages())
+    with open(tmp_path / "trace.json") as f:
+        assert "stem_conv_kernel" in f.read()
+
+
+@pytest.mark.gpu
+def test_dirichlet_statistics_on_the_card_match_the_cpu(cuda):
+    from modular_semantic_segmentation_torch.ops import fusion_math as fm
+    rng = np.random.RandomState(5)
+    probs = torch.from_numpy(rng.dirichlet(
+        np.ones(14), size=(2, 64, 96)).astype(np.float32))
+    labels = torch.from_numpy(rng.randint(-1, 16, (2, 64, 96)).astype(
+        np.int32))
+    ss, counts = fm.dirichlet_sufficient_statistics(probs.to(cuda),
+                                                    labels.to(cuda), 14)
+    want_ss, want_counts = fm.dirichlet_sufficient_statistics(probs, labels,
+                                                              14)
+    np.testing.assert_allclose(ss.cpu().numpy(), want_ss.numpy(), rtol=1e-4)
+    assert torch.equal(counts.cpu(), want_counts)
 
 
 def _small_fusion(name, device, **config):
