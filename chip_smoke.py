@@ -9,18 +9,23 @@ H100) and the CUDA toolkit. Phases, each printing its own lines:
  1. device: the card's name, the device count and nvidia-smi's name and
     power limit;
  2. build: the three kernels of ``modular_semantic_segmentation_torch/
-    csrc``, one nvcc each, in parallel;
+    csrc``, one nvcc each, in parallel; ptxas's registers, shared memory
+    and spills for each, and the count of HGMMA (wgmma) instructions in
+    the stem conv's machine code, which must not be 0;
  3. kernel checks: the confusion kernel against its plain version (exact,
     with -1 and out-of-range labels and predictions present) and the
     Dirichlet kernel against its plain version (f32 and bf16
-    probabilities; labels equal except at argmax ties), both at the
-    flagship shapes (768x384 frames, 14 classes); the stem conv kernel
-    against its plain version at conv1_2 of the flagship ([1, 768, 384,
-    64] -> 64) and at a ragged shape ([2, 37, 53, 16] -> 24), within
-    1e-2 of the largest plain value. Each is timed with CUDA events, L2
-    flushed between launches, beside its plain version, a PyTorch
-    yardstick call where one exists (the stem conv's is cuDNN's conv),
-    and its bound;
+    probabilities, each expert's in its own tensor, read in place;
+    labels equal except at argmax ties), both at the flagship shapes
+    (768x384 frames, 14 classes); the stem conv kernel against its plain
+    version at conv1_2, conv2_1 and conv2_2 of the flagship ([1, 768,
+    384, 64] -> 64, [1, 384, 192, 64] -> 128, [1, 384, 192, 128] -> 128)
+    and at a ragged shape ([2, 37, 53, 16] -> 24), within 1e-2 of the
+    largest plain value. Each is timed with CUDA events, L2 flushed
+    before each call, beside its plain version, a PyTorch yardstick call
+    where one exists (the stem conv's is cuDNN's conv), and its bound;
+    the kernel and its yardstick in turns (yardstick, kernel, kernel,
+    yardstick);
  4. measure step: two full-width SimpleFCN experts (rgb, depth; num_units
     64, 14 classes, seeded weights) score 4 seeded frames with labels;
  5. Dirichlet fit: DirichletFusion.fit on those 4 frames (float32
@@ -28,7 +33,8 @@ H100) and the CUDA toolkit. Phases, each printing its own lines:
  6. Bayes serving: BayesFusion on the measured confusion matrices,
     bfloat16, InferenceServer(unroll=4) over 8 frames;
  7. Dirichlet serving: the fitted DirichletFusion(use_pallas=True),
-    bfloat16, 8 frames;
+    bfloat16, 8 frames, with no torch.stack on the path (the kernel reads
+    the experts' probabilities in place);
  8. stem conv: the stem conv kernel as conv1_2 of the rgb expert, fed the
     expert's own conv1_1 output (bf16) on a served frame, held against
     the expert's conv1_2 layer;
@@ -47,6 +53,7 @@ CUDA card.
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -66,9 +73,13 @@ UNROLL = 4
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
-# the stem conv probe: conv1_2 of the flagship expert and a ragged shape,
-# (batch, height, width, cin, cout)
-STEM_SHAPES = ((1, HEIGHT, WIDTH, 64, 64), (2, 37, 53, 16, 24))
+# the stem conv probe, (batch, height, width, cin, cout): conv1_2, conv2_1
+# and conv2_2 of the flagship expert (timed; conv1_2 is the kernel's
+# record) and a ragged shape (checked only)
+STEM_SHAPES = ((1, HEIGHT, WIDTH, 64, 64),
+               (1, HEIGHT // 2, WIDTH // 2, 64, 128),
+               (1, HEIGHT // 2, WIDTH // 2, 128, 128), (2, 37, 53, 16, 24))
+STEM_TIMED = 3
 STEM_RTOL = 1e-2
 TRACE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "traces")
@@ -121,12 +132,47 @@ def phase_device():
     return name, count, smi_line
 
 
+def ptxas_usage(log):
+    """[(kernel, 'registers, shared memory, spills')] from nvcc's -Xptxas -v
+    output; a template instance is named by its arguments, e.g.
+    ``dirichlet_label_kernel<bf16, 14, 14>``."""
+    out, function, spills = [], None, ""
+    for line in log.splitlines():
+        found = re.search(r"Compiling entry function '(\w+)'", line)
+        if found:
+            mangled = found.group(1)
+            named = re.search(r"\d+([a-z_]+_kernel)", mangled)
+            base = named.group(1) if named else mangled
+            args = re.search(r"_kernelI(13__nv_bfloat16|f)((?:Li\d+E)+)",
+                             mangled)
+            function = base if args is None else "{}<{}>".format(
+                base, ", ".join(["f32" if args.group(1) == "f" else "bf16"]
+                                + re.findall(r"\d+", args.group(2))))
+        elif "spill" in line:
+            spills = line.strip()
+        elif "Used" in line and function is not None:
+            out.append((function, f"{line.split(':', 1)[1].strip()}; "
+                                  f"{spills}"))
+            function = None
+    return out
+
+
 def phase_build():
     from modular_semantic_segmentation_torch.ops.cuda import build
     start = time.perf_counter()
     build.build()
     print(f"build: {', '.join(build.KERNEL_SOURCES)} with nvcc in "
           f"{time.perf_counter() - start:.1f} s")
+    for name in build.KERNEL_SOURCES:
+        for function, usage in ptxas_usage(build.build_log(name)):
+            print(f"ptxas {function}: {usage}")
+    cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run(
+        [cuobjdump, "-sass", build.library_path("stem_conv")[1]],
+        capture_output=True, text=True, timeout=120, check=True).stdout
+    hgmma = sum("HGMMA" in line for line in sass.splitlines())
+    print(f"stem_conv machine code: {hgmma} HGMMA instructions")
+    check(hgmma > 0, "the stem conv kernel issues no wgmma (HGMMA)")
 
 
 def check_confusion(card):
@@ -135,10 +181,10 @@ def check_confusion(card):
         cold_ms, kernel_ms)
     k, pixels = NUM_CLASSES, HEIGHT * WIDTH
     gen = torch.Generator(device="cuda").manual_seed(0)
-    # int64 predictions, as argmax gives them on the main path, int32
-    # labels, as the data gives them; both with values outside [0, K)
+    # int32 predictions and labels, as the main path gives them (the
+    # experts' argmax, the data), both with values outside [0, K)
     preds = torch.randint(-1, k + 2, (pixels,), generator=gen,
-                          device="cuda")
+                          device="cuda", dtype=torch.int32)
     labels = torch.randint(-2, k + 3, (pixels,), generator=gen,
                            device="cuda", dtype=torch.int32)
     got = confusion.confusion_matrix(preds, labels, k)
@@ -183,13 +229,18 @@ def check_dirichlet(card):
                       for _ in range(experts)]).astype(np.float32)
     alphas = [rng.rand(k, k) * 4 + 0.5 for _ in range(experts)]
     prior = rng.dirichlet(np.ones(k))
-    coeffs, bias = dirichlet.dirichlet_tables(alphas, prior, 1.0, k)
-    coeffs = torch.from_numpy(coeffs).cuda()
-    bias = torch.from_numpy(bias).cuda()
+    # the kernel takes its constants by value, from the host; the plain
+    # version computes on the card
+    host = [torch.from_numpy(t) for t in dirichlet.dirichlet_tables(
+        alphas, prior, 1.0, k)]
+    coeffs, bias = (t.cuda() for t in host)
     record = None
     for dtype in (torch.float32, torch.bfloat16):
-        stacked = torch.from_numpy(probs).to("cuda", dtype)
-        got = dirichlet.dirichlet_label(stacked, coeffs, bias)
+        # each expert's probabilities in a tensor of its own, as the model
+        # passes them: the kernel reads them in place
+        in_place = [torch.from_numpy(p).to("cuda", dtype) for p in probs]
+        stacked = torch.stack(in_place)  # for the plain version only
+        got = dirichlet.dirichlet_label(in_place, *host)
         scores = dirichlet.dirichlet_scores_plain(stacked, coeffs, bias)
         want = torch.argmax(scores, dim=-1).to(torch.int32)
         torch.cuda.synchronize()
@@ -202,21 +253,25 @@ def check_dirichlet(card):
         check(bool((rel[differ] <= TIE_RTOL).all()),
               f"dirichlet kernel ({dtype}) picks labels that are not ties "
               f"of the plain scores: max relative gap {float(rel.max())}")
-        ms = cold_ms(lambda: dirichlet.dirichlet_label(stacked, coeffs,
-                                                       bias))
-        alone = kernel_ms(lambda: dirichlet.dirichlet_label(
-            stacked, coeffs, bias), "dirichlet_label_kernel")
+        ms = cold_ms(lambda: dirichlet.dirichlet_label(in_place, *host))
+        alone = kernel_ms(lambda: dirichlet.dirichlet_label(in_place, *host),
+                          "dirichlet_label_kernel")
         plain = cold_ms(lambda: dirichlet.dirichlet_label_plain(
             stacked, coeffs, bias))
+        # what reading the same bytes costs after the L2 flush: the
+        # simplest op that reads both experts' probabilities
+        read_ms = cold_ms(lambda: torch.add(*in_place))
         n_bytes = (stacked.numel() * stacked.element_size() + pixels * 4
                    + (coeffs.numel() + bias.numel()) * 4)
         n_ops = experts * pixels * (k + 2 * k * k) + pixels * k
         bound, bound_by = bound_ms(n_bytes, n_ops)
-        print(f"kernel dirichlet {str(dtype)[6:]}: {n_differ} of {pixels} "
-              f"labels differ from plain, all ties within rel "
-              f"{TIE_RTOL}; max score gap {float(gap.max()):.3g}; call "
-              f"{ms:.4f} ms (kernel alone {_ms(alone)}), plain {plain:.4f} "
-              f"ms, bound {bound:.4f} ms ({bound_by}) on {card}")
+        print(f"kernel dirichlet {str(dtype)[6:]}, experts read in place: "
+              f"{n_differ} of {pixels} labels differ from plain, all ties "
+              f"within rel {TIE_RTOL}; max score gap "
+              f"{float(gap.max()):.3g}; call {ms:.4f} ms (kernel alone "
+              f"{_ms(alone)}), plain {plain:.4f} ms, bound {bound:.4f} ms "
+              f"({bound_by}), torch.add of the experts (the same bytes "
+              f"read) {read_ms:.4f} ms on {card}")
         # the record keeps the dtype the main path serves: bfloat16
         record = {"name": "dirichlet", "route": "cuda",
                   "source": "modular_semantic_segmentation_torch/csrc/"
@@ -233,7 +288,7 @@ def check_stem_conv(card):
     from modular_semantic_segmentation_torch.ops.cuda import stem_conv
     record = None
     for i, (batch, h, w, cin, cout) in enumerate(STEM_SHAPES):
-        full = i == 0
+        full = i < STEM_TIMED
         out = stem_conv.probe(h, w, cin, cout, batch=batch, timings=full)
         check(out["max_abs_err"] <= STEM_RTOL * out["scale"],
               "stem conv kernel differs from its plain version")
@@ -252,6 +307,8 @@ def check_stem_conv(card):
               f"ms, cuDNN conv+bias+relu {out['library_ms']:.4f} ms, bound "
               f"{bound:.4f} ms ({bound_by}: {out['n_bytes'] / 1e6:.2f} MB, "
               f"{out['n_flops'] / 1e9:.2f} GFLOP) on {card}")
+        if i:
+            continue
         record = {"name": "stem_conv", "route": "cuda",
                   "source": "modular_semantic_segmentation_torch/csrc/"
                             "stem_conv.cu",
@@ -425,6 +482,8 @@ def stem_conv_path(expert, frames, card):
 def check_labels(out, what):
     check(out.shape == (SERVE_FRAMES, HEIGHT, WIDTH),
           f"{what}: output shape {out.shape}")
+    check(out.dtype == np.int32, f"{what}: labels of type {out.dtype}, the "
+          "reference's are int32")
     check(out.min() >= 0 and out.max() < NUM_CLASSES,
           f"{what}: labels outside [0, {NUM_CLASSES})")
 
@@ -458,8 +517,7 @@ def reference_checks(experts, bayes, dirich):
     probs = [torch.from_numpy(dirich.predict(
         small, output_attr=f"{m}_norm_prob")).reshape(-1, NUM_CLASSES)
         for m in MODALITIES]
-    coeffs, bias = (t.cpu() for t in dirich._kernel_tables(dirich.device,
-                                                           NUM_CLASSES))
+    coeffs, bias = dirich._kernel_tables(NUM_CLASSES)
     scores = dirichlet.dirichlet_scores_plain(torch.stack(probs), coeffs,
                                               bias)
     got = torch.from_numpy(dirich.predict(small).reshape(-1)).long()
@@ -547,15 +605,28 @@ def main():
           f"synchronised; three runs after a warm-up) on {smi_line}")
 
     before = dirichlet.KERNEL.launches
-    out, dirichlet_ms = timed("Dirichlet serving", serve, dirich,
-                              serve_frames)
+    stacks = []
+    real_stack = torch.stack
+
+    def counted_stack(*args, **kwargs):
+        stacks.append(1)
+        return real_stack(*args, **kwargs)
+
+    torch.stack = counted_stack  # the kernel reads the experts in place
+    try:
+        out, dirichlet_ms = timed("Dirichlet serving", serve, dirich,
+                                  serve_frames)
+    finally:
+        torch.stack = real_stack
+    check(not stacks, f"Dirichlet serving called torch.stack {len(stacks)} "
+          "times")
     check_labels(out, "Dirichlet serving")
     dirichlet_launches = dirichlet.KERNEL.launches - before
     print(f"Dirichlet serving: {_runs(dirichlet_ms)} ms/frame over "
           f"{SERVE_FRAMES} frames at {HEIGHT}x{WIDTH}, bf16, unroll "
           f"{UNROLL}, fitted parameters, dirichlet launches "
-          f"{dirichlet_launches} (host clock, synchronised; three runs "
-          f"after a warm-up) on {smi_line}")
+          f"{dirichlet_launches}, torch.stack calls 0 (host clock, "
+          f"synchronised; three runs after a warm-up) on {smi_line}")
     check(dirichlet_launches >= SERVE_FRAMES,
           f"Dirichlet serving launched the kernel {dirichlet_launches} "
           f"times for {SERVE_FRAMES} frames")

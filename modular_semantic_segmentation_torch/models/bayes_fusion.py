@@ -63,7 +63,7 @@ class BayesFusion(FusionModel):
                                                            classifications)}
         fused_score, likelihoods, conditionals = fm.bayes_fusion_from_tables(
             classifications, tables)
-        out = {"prediction": torch.argmax(fused_score, 3),
+        out = {"prediction": torch.argmax(fused_score, 3).to(torch.int32),
                "fused_score": fused_score}
         for m, ll_, cond in zip(self.modalities, likelihoods, conditionals):
             out[f"{m}_likelihood"] = ll_

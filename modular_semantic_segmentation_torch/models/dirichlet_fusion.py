@@ -76,16 +76,16 @@ class DirichletFusion(FusionModel):
         data_prior = self.class_counts / (1e-20 + self.class_counts.sum())
         return fm.class_prior(self.config["class_prior"], data_prior)
 
-    def _kernel_tables(self, device, num_classes):
-        """(coeffs, bias) of the kernel on ``device``, built on first use."""
-        key = str(device)
-        if key not in self._tables:
+    def _kernel_tables(self, num_classes):
+        """(coeffs, bias) of the kernel, built on first use. They stay on
+        the host on every device: the kernel takes them by value."""
+        if num_classes not in self._tables:
             coeffs, bias = dirichlet.dirichlet_tables(
                 [self.dirichlet_params[m] for m in self.modalities],
                 self._prior(), self.config["sigma"], num_classes)
-            self._tables[key] = (torch.from_numpy(coeffs).to(device),
-                                 torch.from_numpy(bias).to(device))
-        return self._tables[key]
+            self._tables[num_classes] = (torch.from_numpy(coeffs),
+                                         torch.from_numpy(bias))
+        return self._tables[num_classes]
 
     def _fusion(self, expert_outputs):
         # normalize probs defensively, as the reference does
@@ -105,17 +105,17 @@ class DirichletFusion(FusionModel):
         if self.config.get("use_pallas"):
             first = probs[self.modalities[0]]
             k = first.shape[-1]
-            stacked = torch.stack([probs[m].reshape(-1, k)
-                                   for m in self.modalities])
-            coeffs, bias = self._kernel_tables(first.device, k)
+            coeffs, bias = self._kernel_tables(k)
+            # each expert's probabilities are read where they lie
             out["prediction"] = dirichlet.dirichlet_label(
-                stacked, coeffs, bias).reshape(first.shape[:-1])
+                [probs[m].reshape(-1, k) for m in self.modalities], coeffs,
+                bias).reshape(first.shape[:-1])
             return out
         fused = fm.dirichlet_fusion(
             [probs[m] for m in self.modalities],
             [self.dirichlet_params[m] for m in self.modalities],
             self._prior(), sigma=self.config["sigma"])
-        out["prediction"] = torch.argmax(fused, 3)
+        out["prediction"] = torch.argmax(fused, 3).to(torch.int32)
         out["fused_score"] = fused
         return out
 

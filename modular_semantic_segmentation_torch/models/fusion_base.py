@@ -9,6 +9,8 @@ lane-occupancy measure with identical numerics); the port runs them
 unpacked and accepts and ignores the ``pack_experts`` option.
 """
 
+import torch
+
 from modular_semantic_segmentation_torch.ops import layers as ll
 from modular_semantic_segmentation_torch.models.estimator import Estimator
 from modular_semantic_segmentation_torch.models.simple_fcn import (
@@ -31,8 +33,9 @@ def test_pipeline(ctx, inputs, prefix, expert_model, num_units, num_classes,
     else:
         raise UserWarning(f"ERROR: Expert Model {expert_model} not found")
     outputs["prob"] = ll.softmax(outputs["score"])
-    # argmax of the raw score == argmax of its softmax (monotone)
-    outputs["classification"] = outputs["score"].argmax(-1)
+    # argmax of the raw score == argmax of its softmax (monotone); int32,
+    # as jnp.argmax gives it
+    outputs["classification"] = outputs["score"].argmax(-1).to(torch.int32)
     return outputs
 
 

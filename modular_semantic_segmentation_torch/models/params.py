@@ -96,9 +96,10 @@ def import_weights(variables, filepath, translate_prefix=False,
     return out, {"missing": missing, "mismatched": mismatched}
 
 
-def from_jax_variables(np_dict, device="cpu"):
+def from_jax_variables(np_dict, device="cuda"):
     """The JAX package's parameters (a ``{tf_name: array}`` dict, as numpy)
-    as a port variable store on ``device``.
+    as a port variable store on ``device`` (the card by default, as for
+    every entry point of the port; pass ``device="cpu"`` for the CPU).
 
     Both packages use TF names and the npz layouts, so this is a
     name-for-name copy into float32 tensors.

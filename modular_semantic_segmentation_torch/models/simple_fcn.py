@@ -200,4 +200,5 @@ class SimpleFCN(Estimator):
     def _test_outputs(self, ctx, batch):
         layers = self._fcn(ctx, batch[self.modality])
         prob = ll.softmax(layers["score"])
-        return {"prob": prob, "prediction": prob.argmax(-1)}
+        return {"prob": prob,
+                "prediction": prob.argmax(-1).to(torch.int32)}

@@ -4,12 +4,15 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first use
 into its own shared library,
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -o _build/<name>-<hash>.so
+         csrc/<name>.cu
 
 under ``modular_semantic_segmentation_torch/_build/`` (listed in
-``.gitignore``). The file name carries a hash of the source and the flags,
-so an edited source is rebuilt. No PyTorch header is compiled, which keeps
-a build to seconds. ``build()`` starts one nvcc per source, all at once.
+``.gitignore``), with nvcc's output (ptxas's registers, shared memory and
+spills per kernel) in ``_build/<name>-<hash>.log``. The file name carries
+a hash of the source and the flags, so an edited source is rebuilt. No
+PyTorch header is compiled, which keeps a build to seconds. ``build()``
+starts one nvcc per source, all at once.
 """
 
 import ctypes
@@ -23,7 +26,7 @@ _PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
 CSRC_DIR = os.path.join(_PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(_PACKAGE_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNEL_SOURCES = ("confusion", "dirichlet", "stem_conv")
 
 
@@ -78,6 +81,8 @@ def build(names=KERNEL_SOURCES, timeout=600):
                 errors.append(f"nvcc failed on {name}.cu "
                               f"(exit {proc.returncode}):\n{log}")
             else:
+                with open(f"{target[:-3]}.log", "w") as f:
+                    f.write(log)
                 os.replace(partial, target)
         if errors:
             raise RuntimeError("\n".join(errors))
@@ -88,6 +93,12 @@ def build(names=KERNEL_SOURCES, timeout=600):
                 proc.wait()
             if os.path.exists(partial):
                 os.remove(partial)
+
+
+def build_log(name):
+    """nvcc's output for the built library of source ``name``."""
+    with open(f"{library_path(name)[1][:-3]}.log") as f:
+        return f.read()
 
 
 class Kernel:

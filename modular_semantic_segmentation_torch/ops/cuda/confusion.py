@@ -56,6 +56,8 @@ def confusion_matrix(predictions, labels, num_classes):
         raise ValueError(f"num_classes must be in [1, {MAX_CLASSES}]")
     if predictions.numel() != labels.numel():
         raise ValueError("predictions and labels differ in size")
+    # the port's labels and predictions are int32 already, and for them
+    # neither line below makes a pass; other integer types are cast
     preds = predictions.reshape(-1).to(torch.int32).contiguous()
     labs = labels.reshape(-1).to(torch.int32).contiguous()
     out = torch.zeros((k + 1) * k, dtype=torch.int32, device=preds.device)

@@ -140,7 +140,7 @@ def fitted():
                                       device="cpu", use_pallas=True,
                                       compute_dtype="bfloat16", **SMALL)
     tnet.variables = from_jax_variables(
-        {k: np.asarray(v) for k, v in jnet.variables.items()})
+        {k: np.asarray(v) for k, v in jnet.variables.items()}, device="cpu")
     data = _frames()
     # serve once with stale parameters, which fills the kernel's tables
     rng = np.random.RandomState(9)
@@ -203,7 +203,7 @@ def test_predict_after_fit_matches_jax(fitted):
     finally:
         tnet.compute_dtype = torch.bfloat16
     want = jnet.predict(data)
-    coeffs, bias = tnet._kernel_tables(tnet.device, NUM_CLASSES)
+    coeffs, bias = tnet._kernel_tables(NUM_CLASSES)
     fresh = dirichlet.dirichlet_tables(
         [tnet.dirichlet_params[m] for m in MODALITIES], tnet._prior(),
         tnet.config["sigma"], NUM_CLASSES)

@@ -73,7 +73,7 @@ def _pair(name, **config):
                            **SMALL, **config)
     variables = {k: np.asarray(v) for k, v in jnet.variables.items()}
     assert sorted(tnet.variables) == sorted(variables)
-    tnet.variables = from_jax_variables(variables)
+    tnet.variables = from_jax_variables(variables, device="cpu")
     return jnet, tnet
 
 

@@ -73,9 +73,45 @@ def test_dirichlet_kernel_matches_plain(cuda, dtype, experts, k, pixels):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("experts,k,pixels", [(2, 14, 5000), (3, 14, 777),
+                                              (2, 20, 1234), (3, 20, 300)])
+def test_dirichlet_kernel_reads_experts_in_place(cuda, dtype, experts, k,
+                                                 pixels):
+    """Each expert's probabilities in its own tensor, as the model passes
+    them; P is not a multiple of the kernel's 256-pixel slab. Labels may
+    differ from the plain version's only at ties within 1e-5 relative,
+    the rule of chip_smoke.check_dirichlet."""
+    rng = np.random.RandomState(k + experts)
+    probs = [torch.from_numpy(rng.dirichlet(np.ones(k), size=pixels).astype(
+        np.float32)).to(cuda, dtype) for _ in range(experts)]
+    alphas = [rng.rand(k, k) * 4 + 0.5 for _ in range(experts)]
+    coeffs, bias = dirichlet.dirichlet_tables(
+        alphas, rng.dirichlet(np.ones(k)), 0.7, k)
+    coeffs = torch.from_numpy(coeffs).to(cuda)
+    bias = torch.from_numpy(bias).to(cuda)
+    before = dirichlet.KERNEL.launches
+    got = dirichlet.dirichlet_label(probs, coeffs, bias)
+    torch.cuda.synchronize()
+    assert dirichlet.KERNEL.launches == before + 1
+    assert got.dtype == torch.int32 and tuple(got.shape) == (pixels,)
+    stacked = torch.stack(probs)
+    scores = dirichlet.dirichlet_scores_plain(stacked, coeffs, bias)
+    want = dirichlet.dirichlet_label_plain(stacked, coeffs, bias)
+    best = scores.max(dim=-1).values
+    picked = scores.gather(1, got.long()[:, None])[:, 0]
+    differ = got != want
+    rel = (best - picked) / best.abs().clamp_min(1e-30)
+    assert bool((rel[differ] <= 1e-5).all())
+    assert int(differ.sum()) <= pixels // 100
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("batch,height,width,cin,cout",
                          [(1, 768, 384, 64, 64), (2, 37, 53, 16, 24),
-                          (1, 9, 130, 128, 136)])
+                          (1, 9, 130, 128, 136), (1, 384, 192, 64, 128),
+                          (1, 384, 192, 128, 128), (1, 21, 100, 32, 24),
+                          (3, 6, 70, 48, 8)])
 def test_stem_conv_kernel_matches_plain(cuda, batch, height, width, cin,
                                         cout):
     before = stem_conv.KERNEL.launches

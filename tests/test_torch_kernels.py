@@ -113,3 +113,63 @@ def test_wrappers_refuse_other_devices():
     labels = torch.empty(10, dtype=torch.int64, device="meta")
     with pytest.raises(ValueError, match="device"):
         confusion.confusion_matrix(labels, labels, 4)
+
+
+@pytest.mark.parametrize("experts", [2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dirichlet_list_and_stacked_forms_agree(experts, dtype):
+    """The expert-pointer form (a list of per-expert [P, K] tensors, which
+    the kernel reads in place on the card) and the stacked [E, P, K] form
+    give equal labels through the plain version on the CPU."""
+    rng = np.random.RandomState(experts)
+    k, pixels = 14, 777
+    probs = [torch.from_numpy(rng.dirichlet(np.ones(k), size=pixels).astype(
+        np.float32)).to(dtype) for _ in range(experts)]
+    coeffs, bias = dirichlet.dirichlet_tables(
+        [rng.rand(k, k) * 4 + 0.5 for _ in range(experts)],
+        rng.dirichlet(np.ones(k)), 0.5, k)
+    coeffs, bias = torch.from_numpy(coeffs), torch.from_numpy(bias)
+    dirichlet.KERNEL.launches = 0
+    listed = dirichlet.dirichlet_label(probs, coeffs, bias)
+    stacked = dirichlet.dirichlet_label(torch.stack(probs), coeffs, bias)
+    assert dirichlet.KERNEL.launches == 0
+    assert listed.dtype == torch.int32 and tuple(listed.shape) == (pixels,)
+    assert torch.equal(listed, stacked)
+    assert torch.equal(listed, dirichlet.dirichlet_label_plain(
+        torch.stack(probs), coeffs, bias))
+
+
+def test_dirichlet_shared_memory_fits_the_flagship():
+    """The kernel's block at the flagship (2 experts, 14 classes) holds
+    the bfloat16 log table and a ring of three slabs within 227 KB; its
+    coefficients go by value, K = 14 as one exact chunk of 14 classes, and
+    at most 4 experts are taken."""
+    assert dirichlet.class_chunk(14) == 14
+    assert dirichlet.class_chunk(20) == 16
+    assert dirichlet.class_chunk(3) == 4
+    table = 4 * dirichlet.LOG_TABLE_SIZE
+    assert dirichlet.smem_bytes(2, 14, 2) == table + 3 * 2 * 256 * 14 * 2
+    assert dirichlet.smem_bytes(2, 14, 4) == 3 * 2 * 256 * 14 * 4
+    for experts, k, value_bytes in ((4, 16, 2), (3, 20, 4)):
+        assert dirichlet.smem_bytes(experts, k, value_bytes) <= 227 * 1024
+    assert dirichlet.fits_by_value(4, 16, 16)
+    assert dirichlet.fits_by_value(3, 20, 20)  # 2 chunks x 3 x 20 x 16
+    assert not dirichlet.fits_by_value(4, 40, 40)
+    assert dirichlet.MAX_EXPERTS == 4
+
+
+def test_dirichlet_log_table_is_the_plain_log_by_bits():
+    """Entry i of the bfloat16 log table is the plain version's log of the
+    bfloat16 whose bits are i; the table covers every value in [0, 1]."""
+    table = dirichlet.log_table("cpu")
+    assert table.dtype == torch.float32
+    assert table.shape == (dirichlet.LOG_TABLE_SIZE,)
+    rng = np.random.RandomState(0)
+    values = torch.from_numpy(np.concatenate([
+        rng.dirichlet(np.ones(14), size=100).ravel(), [0.0, 1.0, 1e-30]])
+        .astype(np.float32)).to(torch.bfloat16)
+    bits = values.view(torch.int16).long()
+    assert int(bits.max()) < dirichlet.LOG_TABLE_SIZE
+    assert torch.equal(table[bits], torch.log(1e-20 + values.float()))
+    one = torch.tensor([1.0], dtype=torch.bfloat16).view(torch.int16)
+    assert int(one) < dirichlet.LOG_TABLE_SIZE

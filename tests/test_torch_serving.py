@@ -54,7 +54,7 @@ def models():
                                   confusion_matrices=cms, device="cpu",
                                   **CONFIG)
     tnet.variables = from_jax_variables(
-        {k: np.asarray(v) for k, v in jnet.variables.items()})
+        {k: np.asarray(v) for k, v in jnet.variables.items()}, device="cpu")
     return jnet, tnet
 
 

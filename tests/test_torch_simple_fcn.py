@@ -64,7 +64,7 @@ def experts():
     assert sorted(tnet.variables) == sorted(variables)
     for k, v in tnet.variables.items():
         assert tuple(v.shape) == variables[k].shape, k
-    tnet.variables = from_jax_variables(variables)
+    tnet.variables = from_jax_variables(variables, device="cpu")
     return jnet, tnet
 
 

@@ -137,3 +137,55 @@ def test_wrapper_raises_on_unsupported_channels(cin, cout, match):
         stem_conv.stem_conv_nhwc(_FakeCuda(1, 8, 8, cin),
                                  _FakeCuda(3, 3, cin, cout),
                                  _FakeCuda(cout))
+
+
+@pytest.mark.parametrize("cin", range(16, 129, 16))
+def test_packed_weights_are_a_permutation_of_the_weight_matrix(cin):
+    """``pack_weights`` moves every entry of the [9*Cin, Cout] matrix to
+    the place the kernel's wgmma reads it from, pads Cout with zeros to a
+    multiple of 64, and ``unpack_weights`` undoes it exactly."""
+    rng = np.random.RandomState(cin)
+    for cout in range(8, 129, 8):
+        kernel = torch.from_numpy(rng.randn(3, 3, cin, cout).astype(
+            np.float32)).to(torch.bfloat16)
+        wmat = kernel.reshape(9 * cin, cout)
+        packed = stem_conv.pack_weights(kernel)
+        chunks = -(-cout // 64)
+        assert packed.shape == (chunks, 9 * cin // 16, 8, 2, 8, 8)
+        assert packed.dtype == torch.bfloat16 and packed.is_contiguous()
+        assert torch.equal(stem_conv.unpack_weights(packed, cin, cout), wmat)
+        # element [j, s, g, h, r, c] is wmat[16 s + 8 h + c, 64 j + 8 g + r]
+        j, s, g, h, r, c = (rng.randint(0, n, 50) for n in packed.shape)
+        co = 64 * j + 8 * g + r
+        inside = co < cout
+        got = packed[j, s, g, h, r, c].float().numpy()
+        want = wmat.float().numpy()[16 * s + 8 * h + c, np.minimum(
+            co, cout - 1)]
+        np.testing.assert_array_equal(got[inside], want[inside])
+        assert not got[~inside].any()
+        # a permutation: the same multiset of values, plus the zero padding
+        values = np.sort(packed.float().numpy().ravel())
+        padding = np.zeros(packed.numel() - wmat.numel(), np.float32)
+        np.testing.assert_array_equal(values, np.sort(np.concatenate(
+            [wmat.float().numpy().ravel(), padding])))
+
+
+@pytest.mark.parametrize("cin", range(16, 129, 16))
+def test_tile_config_fits_shared_memory(cin):
+    """For every Cin the kernel takes, the chosen ring stage holds a
+    multiple of 16 channels that divides Cin, and the block (weights of 64
+    output channels, staged output, two patch stages) fits 227 KB."""
+    config = stem_conv.tile_config(cin)
+    cg = config["cg"]
+    assert cg % 16 == 0 and cin % cg == 0
+    assert config["smem"] == stem_conv.smem_bytes(cin, cg)
+    assert config["smem"] <= 227 * 1024
+    plane = (6 * 66 + 1) * 16
+    assert config["smem"] == (9 * cin * 64 * 2 + 2 * 64 * 72 * 2
+                              + 2 * (cg // 8) * plane)
+    # no wider stage that divides Cin would fit
+    for wider in range(cg + 16, cin + 1, 16):
+        if cin % wider == 0:
+            assert stem_conv.smem_bytes(cin, wider) > 227 * 1024
+    if cin == 64:  # conv1_2 and conv2_1: one stage holds all channels
+        assert cg == 64
