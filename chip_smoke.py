@@ -12,20 +12,21 @@ H100) and the CUDA toolkit. Phases, each printing its own lines:
     csrc``, one nvcc each, in parallel; ptxas's registers, shared memory
     and spills for each, and the count of HGMMA (wgmma) instructions in
     the stem conv's machine code, which must not be 0;
- 3. kernel checks: the confusion kernel against its plain version (exact,
-    with -1 and out-of-range labels and predictions present) and the
+ 3. kernel checks: the confusion kernel, both entry points, exact against
+    its plain version, on uniform pairs (with -1 and out-of-range labels
+    and predictions) and on one bin, timed with its yardstick
+    (``torch.add`` of the same bytes) and ``torch.bincount``; the
     Dirichlet kernel against its plain version (f32 and bf16
     probabilities, each expert's in its own tensor, read in place;
-    labels equal except at argmax ties), both at the flagship shapes
-    (768x384 frames, 14 classes); the stem conv kernel against its plain
-    version at conv1_2, conv2_1 and conv2_2 of the flagship ([1, 768,
-    384, 64] -> 64, [1, 384, 192, 64] -> 128, [1, 384, 192, 128] -> 128)
-    and at a ragged shape ([2, 37, 53, 16] -> 24), within 1e-2 of the
-    largest plain value. Each is timed with CUDA events, L2 flushed
-    before each call, beside its plain version, a PyTorch yardstick call
-    where one exists (the stem conv's is cuDNN's conv), and its bound;
-    the kernel and its yardstick in turns (yardstick, kernel, kernel,
-    yardstick);
+    labels equal except at argmax ties) at the flagship shapes (768x384
+    frames, 14 classes); the stem conv kernel against its plain version
+    at conv1_2, conv2_1 and conv2_2 of the flagship ([1, 768, 384, 64] ->
+    64, [1, 384, 192, 64] -> 128, [1, 384, 192, 128] -> 128) and at a
+    ragged shape ([2, 37, 53, 16] -> 24), within 1e-2 of the largest plain
+    value. Each is timed with CUDA events, L2 flushed before each call,
+    beside its plain version, a PyTorch yardstick call where one exists
+    (the stem conv's is cuDNN's conv), and its bound; the kernel and its
+    yardstick in turns (yardstick, kernel, kernel, yardstick);
  4. measure step: two full-width SimpleFCN experts (rgb, depth; num_units
     64, 14 classes, seeded weights) score 4 seeded frames with labels;
  5. Dirichlet fit: DirichletFusion.fit on those 4 frames (float32
@@ -38,17 +39,28 @@ H100) and the CUDA toolkit. Phases, each printing its own lines:
  8. stem conv: the stem conv kernel as conv1_2 of the rgb expert, fed the
     expert's own conv1_1 output (bf16) on a served frame, held against
     the expert's conv1_2 layer;
- 9. a traced run of each serving path: device time by kernel, busy and
+ 9. the confusion kernel on the measure step's own pairs (the measure
+    frames' labels and the rgb expert's predictions; its record), and the
+    measure step's device kernels per scored batch (torch.profiler);
+10. fusion family: Average, Variance (10 samples, dropout 0.5),
+    Uncertainty-Dirichlet (10 samples, dropout 0.2, the parameters of
+    phase 5) and BayesianFCN (the rgb expert's weights, 10 samples) at
+    full width in bf16, each scoring the 4 frames through the confusion
+    kernel and serving 2 frames; at dropout 0 in float32, Variance gives
+    Average's labels up to ties, Uncertainty-Dirichlet Dirichlet's score
+    and BayesianFCN the expert's entropy with no variance; how often bf16
+    and f32 fused labels agree on a served frame;
+11. a traced run of each serving path: device time by kernel, busy and
     idle share per frame (traces in traces/, gitignored);
-10. reference checks on a small input, the CUDA path against the plain
+12. reference checks on a small input, the CUDA path against the plain
     versions on the CPU.
 
 The launch counts are set to 0 just before phase 4 and read just after
-phase 7 (confusion and Dirichlet kernels), and set to 0 just before and
-read just after phase 8 (stem conv). The second-to-last line is the
-kernels' JSON record and the last line ``{"ok": true, "device": {...}}``.
-Any fault exits non-zero with no result line; so does a machine without a
-CUDA card.
+phase 7 (confusion and Dirichlet kernels), set to 0 just before and read
+just after phase 8 (stem conv) and phase 10 (confusion kernel). The
+second-to-last line is the kernels' JSON record and the last line
+``{"ok": true, "device": {...}}``. Any fault exits non-zero with no result
+line; so does a machine without a CUDA card.
 """
 
 import json
@@ -175,48 +187,132 @@ def phase_build():
     check(hgmma > 0, "the stem conv kernel issues no wgmma (HGMMA)")
 
 
-def check_confusion(card):
+def confusion_pairs(kind, pixels=HEIGHT * WIDTH, seed=0):
+    """(predictions, labels), int32 on the card, as the main path gives
+    them: 'uniform' pairs with values outside [0, K), or 'one bin'
+    (every pixel label 3 and prediction 3)."""
+    if kind == "one bin":
+        full = torch.full((pixels,), 3, dtype=torch.int32, device="cuda")
+        return full, full.clone()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    preds = torch.randint(-1, NUM_CLASSES + 2, (pixels,), generator=gen,
+                          device="cuda", dtype=torch.int32)
+    labels = torch.randint(-2, NUM_CLASSES + 3, (pixels,), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    return preds, labels
+
+
+def check_confusion(card, kind, preds, labels,
+                    timed_pixels=HEIGHT * WIDTH):
+    """Kernel A on one distribution: both entry points exact against the
+    plain version over all the pairs; then, on the first ``timed_pixels``
+    (one frame's), times after the 1 GiB L2 flush: the accumulating call
+    (one launch), the kernel alone, the drop-in ``confusion_matrix``, the
+    plain version, ``torch.bincount`` of the valid bin indices, and
+    ``torch.add`` of labels and predictions (the same bytes read); the
+    call and the yardstick in turns (yardstick, call, call, yardstick)."""
     from modular_semantic_segmentation_torch.ops.cuda import confusion
     from modular_semantic_segmentation_torch.utils.profiling import (
         cold_ms, kernel_ms)
-    k, pixels = NUM_CLASSES, HEIGHT * WIDTH
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    # int32 predictions and labels, as the main path gives them (the
-    # experts' argmax, the data), both with values outside [0, K)
-    preds = torch.randint(-1, k + 2, (pixels,), generator=gen,
-                          device="cuda", dtype=torch.int32)
-    labels = torch.randint(-2, k + 3, (pixels,), generator=gen,
-                           device="cuda", dtype=torch.int32)
-    got = confusion.confusion_matrix(preds, labels, k)
+    k = NUM_CLASSES
     want = confusion.confusion_matrix_plain(preds, labels, k)
+    got = confusion.confusion_matrix(preds, labels, k)
+    total = confusion.confusion_accumulate(
+        preds, labels, k, torch.zeros((k, k), dtype=torch.int64,
+                                      device="cuda"))
     torch.cuda.synchronize()
-    check(torch.equal(got, want), "confusion kernel differs from its plain "
-          f"version by {float((got - want).abs().max())}")
-    valid = (labels >= 0) & (labels < k) & (preds >= 0) & (preds < k)
-    check(float(got.sum()) == float(valid.sum()),
-          "confusion kernel counted the wrong number of pixels")
+    err = max(float((got - want).abs().max()),
+              float((total.float() - want).abs().max()))
+    check(err == 0 and total.dtype == torch.int64,
+          f"confusion kernel ({kind}) differs from its plain version by "
+          f"{err}")
+    valid = ((labels >= 0) & (labels < k) & (preds >= 0) & (preds < k))
+    check(int(total.sum()) == int(valid.sum()),
+          f"confusion kernel ({kind}) counted the wrong number of pixels")
+    preds, labels = preds[:timed_pixels], labels[:timed_pixels]
+    valid = valid[:timed_pixels]
     index = (labels[valid].long() * k + preds[valid]).contiguous()
-    ms = cold_ms(lambda: confusion.confusion_matrix(preds, labels, k))
-    alone = kernel_ms(lambda: confusion.confusion_matrix(preds, labels, k),
-                      "confusion_kernel")
+
+    def call():
+        confusion.confusion_accumulate(preds, labels, k, total)
+
+    yard = [cold_ms(lambda: torch.add(preds, labels))]
+    ms = [cold_ms(call), cold_ms(call)]
+    yard.append(cold_ms(lambda: torch.add(preds, labels)))
+    alone = kernel_ms(call, "confusion_kernel")
+    matrix = cold_ms(lambda: confusion.confusion_matrix(preds, labels, k))
     plain = cold_ms(lambda: confusion.confusion_matrix_plain(preds, labels,
                                                              k))
     library = cold_ms(lambda: torch.bincount(index, minlength=k * k))
     n_bytes = (preds.numel() * preds.element_size()
-               + labels.numel() * labels.element_size() + k * k * 4)
+               + labels.numel() * labels.element_size() + 2 * k * k * 8)
     bound, bound_by = bound_ms(n_bytes)
-    print(f"kernel confusion: exact vs plain over {pixels} pixels; call "
-          f"{ms:.4f} ms (kernel alone {_ms(alone)}), plain {plain:.4f} ms, "
-          f"bincount {library:.4f} ms, bound {bound:.4f} ms ({bound_by}) "
-          f"on {card}")
+    bins = int((confusion.confusion_counts_plain(preds, labels, k)
+                > 0).sum())
+    print(f"kernel confusion, {kind} ({len(preds)} pixels a call, {bins} "
+          f"bins hit): exact vs plain (both entry points, "
+          f"{int(valid.sum())} counted); call {_runs(ms)} ms (one launch; "
+          f"kernel alone {_ms(alone)}), confusion_matrix {matrix:.4f} ms, "
+          f"plain {plain:.4f} ms, bincount {library:.4f} ms, torch.add of "
+          f"labels and predictions {_runs(yard)} ms, bound {bound:.4f} ms "
+          f"({bound_by}) on {card}")
     return {"name": "confusion", "route": "cuda",
             "source": "modular_semantic_segmentation_torch/csrc/"
                       "confusion.cu",
             "replaces": "modular_semantic_segmentation_tpu/ops/pallas/"
                         "confusion_kernel.py:42",
-            "max_abs_err": float((got - want).abs().max()), "ms": ms,
-            "kernel_ms": alone, "plain_ms": plain, "bound_ms": bound,
-            "bound_by": bound_by, "library_ms": library}
+            "max_abs_err": err, "ms": sum(ms) / len(ms), "kernel_ms": alone,
+            "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": library}
+
+
+def measure_step_launches(expert, frames, card):
+    """Device kernels and memsets of ``expert.score`` over the frames
+    against those of its forward passes alone (torch.profiler), per
+    scored batch; and kernel A's share of the score's device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from modular_semantic_segmentation_torch.utils.data_io import \
+        iterate_batches
+
+    def kernels(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return {e.key: (e.count, e.self_device_time_total)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and not e.key.startswith("Memcpy")}
+
+    def forwards():
+        for batch, _ in iterate_batches(frames, expert.config["batchsize"]):
+            expert._forward(expert._batch_to_device(batch))
+
+    batches = len(frames["labels"]) // expert.config["batchsize"]
+    scored = kernels(lambda: expert.score(frames))
+    forward = kernels(forwards)
+    extra = {key: count - forward.get(key, (0, 0))[0]
+             for key, (count, _) in scored.items()}
+    extra = {key: n for key, n in extra.items() if n}
+    a_count, a_us = scored.get(next(
+        (key for key in scored if "confusion_kernel" in key), ""), (0, 0))
+    device_us = sum(us for _, us in scored.values())
+    if device_us <= 0:
+        print("measure step launches: not measured (no device time "
+              "recorded)")
+        return
+    print(f"measure step, {expert.modality} expert, {batches} scored "
+          f"batches (torch.profiler): {a_count / batches:.2f} confusion "
+          f"launches a batch; kernels and memsets beyond the forward "
+          f"passes' "
+          f"{sum(extra.values()) / batches:.2f} a batch ("
+          + ", ".join(f"{key[:60]} x{n}" for key, n in sorted(extra.items()))
+          + f"); kernel A {a_us / 1e3 / batches:.4f} ms of "
+          f"{device_us / 1e3 / batches:.3f} ms device time a batch "
+          f"({100 * a_us / device_us:.3f}%) on {card}")
+    check(a_count == batches, f"the measure step launched kernel A "
+          f"{a_count} times for {batches} batches")
 
 
 def check_dirichlet(card):
@@ -479,6 +575,149 @@ def stem_conv_path(expert, frames, card):
           f" (limit {STEM_RTOL} of it) on {card}")
 
 
+def forward(net, frame):
+    """All test outputs of ``net`` on one frame, on the card."""
+    return net._forward(net._batch_to_device({k: v[:1]
+                                              for k, v in frame.items()}))
+
+
+def tie_gaps(scores, labels, other):
+    """Where ``labels`` and ``other`` differ: the relative gap between the
+    scores of the two labels (0 where they agree)."""
+    scores = scores.float()
+    a = scores.gather(-1, labels.long()[..., None])[..., 0]
+    b = scores.gather(-1, other.long()[..., None])[..., 0]
+    return ((a - b).abs() / a.abs().clamp_min(1e-30)) * (labels != other)
+
+
+def fusion_family(experts, frames, params, cms, card):
+    """The rest of the paper's fusion family at full width: each model
+    scores the measure frames through kernel A and serves 2 frames;
+    consistency checks at dropout 0 in float32 (cuDNN restricted to
+    deterministic algorithms, so repeated passes are equal); the variance
+    maps at the stated rates finite and not all zero; and how often the
+    bf16 and f32 fused labels agree on a served frame."""
+    from modular_semantic_segmentation_torch.models import get_model
+    from modular_semantic_segmentation_torch.ops import layers as ll
+    from modular_semantic_segmentation_torch.ops.cuda import confusion
+    from modular_semantic_segmentation_torch.serving import InferenceServer
+
+    def bayesian(**config):
+        net = get_model("bayesian_fcn")(
+            prefix="rgb", modality="rgb", data_description=DATA_DESCRIPTION,
+            num_units=NUM_UNITS, batch_normalization=False, num_samples=10,
+            device="cuda", **config)
+        net.variables = dict(experts["rgb"].variables)
+        return net
+
+    family = {
+        "Average": fusion_model("average_fusion", experts,
+                                compute_dtype="bfloat16"),
+        "Variance": fusion_model("variance_fusion", experts, num_samples=10,
+                                 dropout_rate=0.5, compute_dtype="bfloat16"),
+        "Uncertainty-Dirichlet": fusion_model(
+            "uncertainty_dirichlet_mix", experts, num_samples=10,
+            dropout_rate=0.2, dirichlet_params=params,
+            compute_dtype="bfloat16"),
+        "BayesianFCN": bayesian(compute_dtype="bfloat16"),
+    }
+    maps = {"Variance": ("rgb_variance", "depth_variance"),
+            "Uncertainty-Dirichlet": ("rgb_uncertainty", "depth_uncertainty"),
+            "BayesianFCN": ("variance", "entropy", "cond_entropy")}
+    served = [{"rgb": frames["rgb"][i], "depth": frames["depth"][i]}
+              for i in range(2)]
+    labelled = int(((frames["labels"] >= 0)
+                    & (frames["labels"] < NUM_CLASSES)).sum())
+    for name, net in family.items():
+        before = confusion.KERNEL.launches
+        measures, cm = net.score(frames)
+        launches = confusion.KERNEL.launches - before
+        check(cm.sum() == labelled and np.isfinite(measures["mean_F1"]),
+              f"{name}: score counted {cm.sum()} of {labelled} pixels")
+        check(launches > 0, f"{name}: score launched no confusion kernel")
+        server = InferenceServer(net, unroll=2)
+        labels = server.predict(served)
+        check(labels.shape == (2, HEIGHT, WIDTH) and labels.dtype == np.int32
+              and labels.min() >= 0 and labels.max() < NUM_CLASSES,
+              f"{name}: served labels {labels.shape} {labels.dtype}")
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        server.predict(served)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - start) * 1e3 / len(served)
+        out = forward(net, frames)
+        spans = []
+        for key in maps.get(name, ()):
+            value = out[key].float()
+            check(bool(torch.isfinite(value).all()) and bool(value.any()),
+                  f"{name}: {key} not finite, or all zero")
+            spans.append(f"{key} mean {float(value.mean()):.4g} max "
+                         f"{float(value.max()):.4g}")
+        print(f"fusion family {name}: score of {len(frames['labels'])} "
+              f"frames mean_IoU {measures['mean_IoU']:.4f}, confusion "
+              f"launches {launches}; {ms:.3f} ms/frame over 2 served frames "
+              f"(bf16, unroll 2, after a warm-up; host clock, "
+              f"synchronised)" + ("; " if spans else "") + "; ".join(spans)
+              + f" on {card}")
+
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        average = forward(fusion_model("average_fusion", experts), frames)
+        variance = forward(fusion_model(
+            "variance_fusion", experts, num_samples=10, dropout_rate=0.0),
+            frames)
+        rel = tie_gaps(average["fused_score"], average["prediction"],
+                       variance["prediction"])
+        n_differ = int((variance["prediction"]
+                        != average["prediction"]).sum())
+        check(float(rel.max()) <= TIE_RTOL, "Variance at dropout 0 differs "
+              f"from Average beyond ties: relative gap {float(rel.max())}")
+        dirichlet = forward(fusion_model("dirichlet_fusion", experts,
+                                         dirichlet_params=params), frames)
+        uncertain = forward(fusion_model(
+            "uncertainty_dirichlet_mix", experts, num_samples=10,
+            dropout_rate=0.0, dirichlet_params=params), frames)
+        scale = float(dirichlet["fused_score"].abs().max())
+        ud_err = float((uncertain["fused_score"]
+                        - dirichlet["fused_score"]).abs().max())
+        check(ud_err <= 1e-4 * scale, "Uncertainty-Dirichlet at dropout 0 "
+              f"differs from Dirichlet by {ud_err} (scale {scale})")
+        bfcn = forward(bayesian(dropout_rate=0.0), frames)
+        want = ll.entropy(forward(experts["rgb"], frames)["prob"])
+        ent_err = float(((bfcn["entropy"] - want).abs()
+                         / want.abs().clamp_min(1e-30)).max())
+        bfcn_var = float(bfcn["variance"].abs().max())
+        check(ent_err <= 1e-3 and bfcn_var < 1e-6, "BayesianFCN at dropout "
+              f"0: entropy off by {ent_err} relative, variance {bfcn_var}")
+        agree = []
+        for name, f32, bf16 in (
+                ("Bayes", fusion_model("bayes_fusion", experts,
+                                       confusion_matrices=cms),
+                 fusion_model("bayes_fusion", experts,
+                              confusion_matrices=cms,
+                              compute_dtype="bfloat16")),
+                ("Dirichlet", fusion_model("dirichlet_fusion", experts,
+                                           use_pallas=True,
+                                           dirichlet_params=params),
+                 fusion_model("dirichlet_fusion", experts, use_pallas=True,
+                              dirichlet_params=params,
+                              compute_dtype="bfloat16")),
+                ("Average", None, family["Average"])):
+            full = average if f32 is None else forward(f32, frames)
+            same = full["prediction"] == forward(bf16, frames)["prediction"]
+            agree.append(f"{name} {float(same.float().mean()):.4f}")
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    print(f"fusion family checks at dropout 0, float32, one frame: "
+          f"Variance = Average labels ({n_differ} differ, all ties within "
+          f"rel {TIE_RTOL}); Uncertainty-Dirichlet - Dirichlet score max "
+          f"{ud_err:.3g} (limit 1e-4 x {scale:.4g}); BayesianFCN entropy "
+          f"vs the rgb expert's max rel {ent_err:.3g} (limit 1e-3), "
+          f"variance max {bfcn_var:.3g} (limit 1e-6); bf16 and f32 fused "
+          f"labels agree on a served frame: {', '.join(agree)} on {card}")
+
+
 def check_labels(out, what):
     check(out.shape == (SERVE_FRAMES, HEIGHT, WIDTH),
           f"{what}: output shape {out.shape}")
@@ -558,8 +797,10 @@ def main():
         configure_float32
     configure_float32()
     timed("build", phase_build)
-    records = [timed("confusion check", check_confusion, smi_line),
-               timed("dirichlet check", check_dirichlet, smi_line),
+    for kind in ("uniform", "one bin"):
+        timed(f"confusion check, {kind}", check_confusion, smi_line, kind,
+              *confusion_pairs(kind))
+    records = [timed("dirichlet check", check_dirichlet, smi_line),
                timed("stem conv check", check_stem_conv, smi_line)]
     kernels = (confusion.KERNEL, dirichlet.KERNEL)
 
@@ -591,7 +832,8 @@ def main():
 
     dirich = fusion_model("dirichlet_fusion", experts, use_pallas=True,
                           compute_dtype="bfloat16")
-    timed("Dirichlet fit", fit_dirichlet, dirich, frames, smi_line)
+    params = timed("Dirichlet fit", fit_dirichlet, dirich, frames,
+                   smi_line)
 
     serve_frames = [{"rgb": frames["rgb"][i % MEASURE_FRAMES],
                      "depth": frames["depth"][i % MEASURE_FRAMES]}
@@ -639,6 +881,27 @@ def main():
     timed("stem conv", stem_conv_path, experts["rgb"], frames, smi_line)
     launches[stem_conv.KERNEL.source] = stem_conv.KERNEL.launches
     # ---- end of the stem conv's path
+
+    # kernel A on the measure step's own pairs: the measure frames' labels
+    # and the rgb expert's int32 predictions on them; its record
+    predictions = torch.from_numpy(experts["rgb"].predict(frames)).cuda()
+    records.insert(0, timed(
+        "confusion check, measure step", check_confusion, smi_line,
+        "measure step", predictions.reshape(-1),
+        torch.from_numpy(frames["labels"]).cuda().reshape(-1)))
+    timed("measure step launches", measure_step_launches, experts["rgb"],
+          frames, smi_line)
+
+    # ---- the fusion family's path: the launch counts from 0
+    for kernel in kernels:
+        kernel.launches = 0
+    timed("fusion family", fusion_family, experts, frames, params, cms,
+          smi_line)
+    check(confusion.KERNEL.launches > 0, "the fusion family launched no "
+          "confusion kernel")
+    print(f"fusion family path: confusion launches "
+          f"{confusion.KERNEL.launches}")
+    # ---- end of the fusion family's path
     timed("profile", lambda: (serving_profile(bayes, serve_frames, "Bayes"),
                               serving_profile(dirich, serve_frames,
                                               "Dirichlet")))

@@ -3,14 +3,18 @@
 
 Per-modality expert CNNs (SimpleFCN/VGG16) whose per-pixel outputs are fused
 by statistical fusion layers (Bayes over confusion-matrix likelihoods,
-class-conditional Dirichlet densities). Module names follow the JAX
+class-conditional Dirichlet densities, averaging, MC-dropout variance
+weighting, uncertainty-modulated Dirichlet), and BayesianFCN's MC-dropout
+uncertainty. Module names follow the JAX
 package so each file has an obvious counterpart there; the JAX package
 stays the reference this port is tested against.
 
 Layout:
     ops/        layers, fusion math, metrics; ops/cuda/ wraps the
                 hand-written Hopper kernels in csrc/
-    models/     Estimator eval runtime, SimpleFCN, Bayes/Dirichlet fusion
+    models/     Estimator eval runtime, SimpleFCN, the fusion family
+                (Bayes, Dirichlet, Average, Variance, Uncertainty-Dirichlet),
+                UncertaintyModel and BayesianFCN
     utils/      host-side batch plumbing
     serving.py  frame-at-a-time inference server
 

@@ -1,4 +1,5 @@
-"""Model registry: the subset of the JAX package's registry that is ported.
+"""Model registry: the subset of the JAX package's registry that is ported,
+under the JAX package's names.
 
 Lazy imports, as in the JAX package; an unknown or not yet ported name
 raises the JAX package's ``UserWarning``.
@@ -13,6 +14,13 @@ _REGISTRY = {
     "bayes_fusion": ("bayes_fusion", "BayesFusion"),
     "dirichlet_mix": ("dirichlet_fusion", "DirichletFusion"),
     "dirichlet_fusion": ("dirichlet_fusion", "DirichletFusion"),
+    "average": ("average_fusion", "AverageFusion"),
+    "average_fusion": ("average_fusion", "AverageFusion"),
+    "variance": ("variance_fusion", "VarianceFusion"),
+    "variance_fusion": ("variance_fusion", "VarianceFusion"),
+    "bayesian_fcn": ("bayesian_fcn", "BayesianFCN"),
+    "uncertainty_dirichlet_mix": ("uncertainty_dirichlet_fusion",
+                                  "UncertaintyDirichletFusion"),
 }
 
 

@@ -8,8 +8,11 @@ batches padded with label -1) and npz ``import_weights`` /
 
 Variables are a flat ``{tf_name: float32 tensor}`` store on ``device``,
 made from the subclass's variable specs and a numpy seed (config ``seed``,
-default 0). PyTorch runs eagerly, so there is no jitted step: the eval
-step is a plain call under ``torch.inference_mode``.
+default 0). The same seed starts the model's ``torch.Generator`` on
+``device``, the random stream of its stochastic layers (MC dropout); it
+advances with every draw, as the JAX package's key is split per step.
+PyTorch runs eagerly, so there is no jitted step: the eval step is a
+plain call under ``torch.inference_mode``.
 
 Subclass contract:
     _variable_specs() -> [(name, shape, initializer), ...]
@@ -64,9 +67,11 @@ class Estimator:
         self.global_step = 0
         self._diagonal_cache = {}
         configure_float32()
-        self.variables = build_variables(
-            self._variable_specs(), seed=int(config.get("seed", 0)),
-            device=self.device)
+        seed = int(config.get("seed", 0))
+        self.variables = build_variables(self._variable_specs(), seed=seed,
+                                         device=self.device)
+        self._generator = torch.Generator(device=self.device)
+        self._generator.manual_seed(seed)
 
     # ------------------------------------------------------------- contracts
     def _variable_specs(self):
@@ -120,7 +125,8 @@ class Estimator:
         """Test outputs for a batch already on the device."""
         with torch.inference_mode():
             ctx = Ctx(self.variables, compute_dtype=self.compute_dtype,
-                      diagonal_cache=self._diagonal_cache)
+                      diagonal_cache=self._diagonal_cache,
+                      generator=self._generator)
             return self._test_outputs(ctx, self._preprocess(batch))
 
     def _eval_step(self, batch):
@@ -153,18 +159,26 @@ class Estimator:
     def score(self, data, max_iterations=None):
         """Confusion-matrix metric suite. Returns (measures, confusion).
 
-        The matrix is accumulated on the device and read back once."""
+        Each batch's counts go into one [K, K] int64 accumulator on the
+        device, one kernel launch a batch (``confusion_accumulate``); the
+        total is read back once and cast to float32 on the host. That
+        equals the JAX package's float32 running sum wherever every bin
+        is under 2**24; above it, JAX's sum rounds and this one stays
+        exact."""
         num_classes = self.config["num_classes"]
-        total = torch.zeros((num_classes, num_classes), dtype=torch.float32,
-                            device=self.device)
         count = 0
-        for batch, _ in iterate_batches(data, self.config["batchsize"]):
-            out = self._eval_step(self._batch_to_device(batch))
-            total += out["confusion_matrix"]
-            count += 1
-            if max_iterations is not None and count >= max_iterations:
-                break
-        confusion = to_numpy(total)
+        with torch.inference_mode():
+            total = torch.zeros((num_classes, num_classes),
+                                dtype=torch.int64, device=self.device)
+            for batch, _ in iterate_batches(data, self.config["batchsize"]):
+                batch = self._batch_to_device(batch)
+                out = self._forward(batch)
+                metrics_lib.confusion_accumulate(
+                    out["prediction"], batch["labels"], num_classes, total)
+                count += 1
+                if max_iterations is not None and count >= max_iterations:
+                    break
+        confusion = total.cpu().numpy().astype(np.float32)
         measures = metrics_lib.measures_from_confusion_matrix(confusion)
         return measures, confusion
 

@@ -3,7 +3,10 @@
 Counterpart of the JAX package's ``models/simple_fcn.py`` (eval): VGG16 conv
 stack, 1x1 score convs on conv4_3 and conv5_3, frozen 4x4/stride-2
 bilinear deconv on score_conv5, added into 'fused'; decoder = frozen
-16x16/stride-8 bilinear deconv + 1x1 class score conv.
+16x16/stride-8 bilinear deconv + 1x1 class score conv. The reference's
+MC-dropout sites (after pool3 and pool4, before the two score convs, and
+on the decoder's features) are there for the MC-dropout models; every
+one of them lies after pool3, so :func:`encoder_head` is deterministic.
 
 ``encoder``/``decoder``/``fcn`` are plain functions returning layer dicts,
 so fusion models build experts without expert model objects.
@@ -59,30 +62,50 @@ def encoder_head(ctx, inputs, prefix, batchnorm=True, channel_factor=1.0):
 
 
 def encoder_tail(ctx, l, prefix, num_units, batchnorm=True,
-                 channel_factor=1.0):
-    """pool3 .. 'fused'. ``l`` is the layer dict from
-    :func:`encoder_head`; mutates and returns it. The JAX package's
-    MC-dropout sites are not ported (rate 0 in eval)."""
+                 channel_factor=1.0, dropout_rate=0.0, dropout_layers=()):
+    """pool3 .. 'fused', with the reference's MC-dropout sites. ``l`` is
+    the layer dict from :func:`encoder_head`; mutates and returns it.
+
+    ``dropout_layers`` names the sites that drop at ``dropout_rate``:
+    'pool3' (after pool3 and, a quirk of the reference kept as in the
+    JAX package, after pool4 too), and 'conv4_3' / 'conv5_3' (before
+    their score convs). Dropout always draws here, as the reference's
+    MC-dropout runs with training=True at test time."""
     params = {"batch_normalization": batchnorm}
     c = _width(channel_factor)
     with ctx.scope(prefix):
-        l["conv4_1"] = ll.conv2d(ctx, l["pool3"], c(512), 3, "conv4_1",
+        last_layer = l["pool3"]
+        if "pool3" in dropout_layers:
+            l["pool3_drop"] = ll.dropout(ctx, l["pool3"], dropout_rate)
+            last_layer = l["pool3_drop"]
+        l["conv4_1"] = ll.conv2d(ctx, last_layer, c(512), 3, "conv4_1",
                                  **params)
         l["conv4_2"] = ll.conv2d(ctx, l["conv4_1"], c(512), 3, "conv4_2",
                                  **params)
         l["conv4_3"] = ll.conv2d(ctx, l["conv4_2"], c(512), 3, "conv4_3",
                                  **params)
         l["pool4"] = ll.max_pool2d(ctx, l["conv4_3"], 2, 2)
-        l["conv5_1"] = ll.conv2d(ctx, l["pool4"], c(512), 3, "conv5_1",
+        last_layer = l["pool4"]
+        # the reference gates pool4's dropout on 'pool3' as well
+        if "pool3" in dropout_layers:
+            l["pool4_drop"] = ll.dropout(ctx, l["pool4"], dropout_rate)
+            last_layer = l["pool4_drop"]
+        l["conv5_1"] = ll.conv2d(ctx, last_layer, c(512), 3, "conv5_1",
                                  **params)
         l["conv5_2"] = ll.conv2d(ctx, l["conv5_1"], c(512), 3, "conv5_2",
                                  **params)
         l["conv5_3"] = ll.conv2d(ctx, l["conv5_2"], c(512), 3, "conv5_3",
                                  **params)
-        score_conv4 = ll.conv2d(ctx, l["conv4_3"], num_units, 1,
-                                "score_conv4", **params)
-        score_conv5 = ll.conv2d(ctx, l["conv5_3"], num_units, 1,
-                                "score_conv5", **params)
+        conv4_3 = l["conv4_3"]
+        if "conv4_3" in dropout_layers:
+            conv4_3 = ll.dropout(ctx, conv4_3, dropout_rate)
+        score_conv4 = ll.conv2d(ctx, conv4_3, num_units, 1, "score_conv4",
+                                **params)
+        conv5_3 = l["conv5_3"]
+        if "conv5_3" in dropout_layers:
+            conv5_3 = ll.dropout(ctx, conv5_3, dropout_rate)
+        score_conv5 = ll.conv2d(ctx, conv5_3, num_units, 1, "score_conv5",
+                                **params)
         upscore_conv5 = ll.deconv2d(ctx, score_conv5, num_units, 4,
                                     "upscore_conv5", strides=2,
                                     activation=torch.relu,
@@ -92,18 +115,24 @@ def encoder_tail(ctx, l, prefix, num_units, batchnorm=True,
 
 
 def encoder(ctx, inputs, prefix, num_units, batchnorm=True,
-            channel_factor=1.0):
+            channel_factor=1.0, dropout_rate=0.0, dropout_layers=()):
     """VGG16 image encoder; the encoding has key 'fused'."""
     l = encoder_head(ctx, inputs, prefix, batchnorm=batchnorm,
                      channel_factor=channel_factor)
     return encoder_tail(ctx, l, prefix, num_units, batchnorm=batchnorm,
-                        channel_factor=channel_factor)
+                        channel_factor=channel_factor,
+                        dropout_rate=dropout_rate,
+                        dropout_layers=dropout_layers)
 
 
-def decoder(ctx, features, prefix, num_units, num_classes, batchnorm=True):
+def decoder(ctx, features, prefix, num_units, num_classes, batchnorm=True,
+            dropout_rate=None):
     """Frozen 16x16/stride-8 bilinear upsampling + 1x1 class score conv
-    (no activation before the softmax)."""
+    (no activation before the softmax); with a ``dropout_rate``, MC
+    dropout on the features first."""
     with ctx.scope(prefix):
+        if dropout_rate is not None:
+            features = ll.dropout(ctx, features, dropout_rate)
         upscore = ll.deconv2d(ctx, features, num_units, 16, "upscore",
                               strides=8, activation=torch.relu,
                               batch_normalization=batchnorm)
@@ -113,12 +142,18 @@ def decoder(ctx, features, prefix, num_units, num_classes, batchnorm=True):
 
 
 def fcn(ctx, inputs, prefix, num_units, num_classes, batchnorm=True,
-        channel_factor=1.0):
-    """Full FCN: encoder + decoder."""
+        channel_factor=1.0, dropout_rate=0.0, dropout_layers=()):
+    """Full FCN: encoder + decoder; 'features' in ``dropout_layers`` drops
+    the decoder's input too."""
     layers = encoder(ctx, inputs, prefix, num_units, batchnorm=batchnorm,
-                     channel_factor=channel_factor)
-    layers.update(decoder(ctx, layers["fused"], prefix, num_units,
-                          num_classes, batchnorm=batchnorm))
+                     channel_factor=channel_factor,
+                     dropout_rate=dropout_rate,
+                     dropout_layers=dropout_layers)
+    layers.update(decoder(
+        ctx, layers["fused"], prefix, num_units, num_classes,
+        batchnorm=batchnorm,
+        dropout_rate=(dropout_rate if "features" in dropout_layers
+                      else None)))
     return layers
 
 

@@ -8,7 +8,10 @@
       simplex; the per-pixel log-likelihood is a [pixels, K] @ [K, C]
       contraction. ``dirichlet_fusion`` is the plain form; the fused label
       in one pass is the kernel of ``ops/cuda/dirichlet.py``. Its fit
-      starts from ``dirichlet_sufficient_statistics``.
+      starts from ``dirichlet_sufficient_statistics``;
+    * Dirichlet with per-pixel uncertainty: the concentrations blended
+      toward the uninformative I + 1 (``dirichlet_uncertainty_fusion``);
+    * variance: inverse-variance weighting of MC-dropout experts.
 
 Host-side statistics (priors, conditionals, decision tables) are numpy in
 float64, as in the JAX package; per-pixel work is PyTorch on the device
@@ -165,6 +168,60 @@ def dirichlet_fusion(probs, alphas, prior, sigma=1.0):
     prior = torch.as_tensor(np.asarray(prior, np.float32),
                             device=fused.device)
     return fused + torch.log(1e-20 + prior)
+
+
+def dirichlet_uncertainty_fusion(probs, alphas, uncertainties, prior,
+                                 sigma=1.0):
+    """Dirichlet fusion with per-pixel uncertainty blending toward an
+    uninformative Dirichlet (reference uncertainty_dirichlet_mix.py:18-52).
+
+    Args:
+        probs: list (per expert) of [..., K] probabilities.
+        alphas: list (per expert) of [K, C] concentration matrices.
+        uncertainties: list (per expert) of [...] in [0, 1]; 1 = fully
+            uncertain -> parameters blended to the uninformative I + 1.
+        prior: [C] class prior.
+    Returns:
+        fused score [..., C], float32.
+    """
+    num_classes = probs[0].shape[-1]
+    device = probs[0].device
+    uninformative = torch.eye(num_classes, dtype=torch.float32,
+                              device=device) + 1.0
+    lls = []
+    for p, a, mix in zip(probs, alphas, uncertainties):
+        a = torch.as_tensor(np.asarray(a, np.float32), device=device) * sigma
+        u = uninformative * sigma
+        m = torch.clamp(mix.float(), 0.0, 1.0)[..., None]  # [..., 1]
+        log_p = torch.log(1e-20 + p.float())
+        # The per-pixel concentration is alpha_px = (1-m)*a + m*u, shape
+        # [..., K, C], and the log-pdf is sum_k (alpha_px_k - 1) log p_k
+        # - log B(alpha_px). The linear term is linear in alpha_px, so it
+        # splits into two matmuls blended per pixel, as the JAX package
+        # splits it; only the normalizer log B(alpha_px) needs the
+        # per-pixel gammaln.
+        linear = ((1.0 - m) * (log_p @ a) + m * (log_p @ u)
+                  - torch.sum(log_p, dim=-1, keepdim=True))
+        alpha_px = (1.0 - m[..., None]) * a + m[..., None] * u
+        log_beta = (torch.special.gammaln(alpha_px).sum(-2)
+                    - torch.special.gammaln((1.0 - m) * a.sum(0)
+                                            + m * u.sum(0)))
+        lls.append(linear - log_beta)
+    fused = torch.stack(lls, dim=0).sum(dim=0)
+    prior = torch.as_tensor(np.asarray(prior, np.float32), device=device)
+    return fused + torch.log(1e-20 + prior)
+
+
+def variance_fusion(probs, variances):
+    """Inverse-variance weighting (reference variance_mix.py:7-15).
+
+    Args:
+        probs: [E, ..., K] stacked expert probabilities.
+        variances: [E, ..., 1] per-pixel MC-dropout variances.
+    """
+    certainties = 1.0 / (1e-20 + variances)
+    return (torch.sum(certainties * probs, dim=0)
+            / torch.sum(certainties, dim=0))
 
 
 def dirichlet_sufficient_statistics(probs, labels, num_classes, eps=1e-10):

@@ -9,7 +9,9 @@ Counterpart of the JAX package's ``ops/layers.py`` (float path only):
       conv2d_transpose layout [H, W, out, in]; channel-diagonal kernels go
       through ``ops/fast_upsample.diagonal_upsample``, others through a
       dense ``conv_transpose2d``;
-    * max_pool2d (VALID), softmax, log_softmax.
+    * max_pool2d (VALID), softmax (with a temperature), log_softmax,
+      entropy;
+    * dropout: TF-style MC dropout drawing from ``ctx.next_generator()``.
 
 Tensors are NHWC at every function here. A convolution sees the
 ``permute(0, 3, 1, 2)`` view: an NCHW tensor in channels-last memory, which
@@ -192,8 +194,37 @@ def log_softmax(x):
     return d - torch.log(torch.sum(torch.exp(d), dim=-1, keepdim=True))
 
 
-def softmax(x):
-    """Softmax over the last axis, the JAX package's formula."""
+def softmax(x, temperature=1.0):
+    """Temperature-scaled softmax over the last axis, the JAX package's
+    formula. At temperature 1 the division, exact there, is skipped."""
+    if temperature != 1.0:
+        x = x / temperature
     m = torch.amax(x, dim=-1, keepdim=True)
     e = torch.exp(x - m)
     return e / torch.sum(e, dim=-1, keepdim=True)
+
+
+def entropy(x):
+    """Entropy over the last axis normalized by log(num classes), in
+    float32 (the JAX package's float32 log(K) promotes bfloat16)."""
+    h = -torch.sum(x * torch.log(torch.clamp(x, 1e-10, 1.0)), dim=-1)
+    return h.float() / torch.log(torch.tensor(float(x.shape[-1]),
+                                              device=h.device))
+
+
+def dropout(ctx, x, rate, training=True, noise_shape=None):
+    """TF-style dropout: zero with probability ``rate``, scale what is kept
+    by 1/(1 - rate).
+
+    The reference's MC-dropout models run dropout even at test time; the
+    ``training`` flag turns it off. ``noise_shape`` broadcasts the mask
+    (e.g. whole-pixel dropout with channel dim 1). The keep mask is
+    uniform < 1 - rate, drawn from ``ctx.next_generator()`` on the device
+    of ``x``.
+    """
+    if not training or rate == 0:
+        return x
+    keep = 1.0 - rate
+    uniform = torch.rand(tuple(noise_shape) if noise_shape else x.shape,
+                         generator=ctx.next_generator(), device=x.device)
+    return torch.where(uniform < keep, x / keep, torch.zeros_like(x))

@@ -44,14 +44,18 @@ class Ctx:
         diagonal_cache: dict the caller keeps across calls, in which
             ``deconv2d`` remembers whether a kernel is channel-diagonal
             (so the check does not wait for the device on every frame).
+        generator: ``torch.Generator`` on the device of the variables,
+            the random stream that stochastic layers (MC dropout) draw
+            from; None for a purely deterministic computation.
     """
 
     def __init__(self, variables, compute_dtype=torch.float32,
-                 diagonal_cache=None):
+                 diagonal_cache=None, generator=None):
         self.variables = variables
         self.compute_dtype = compute_dtype
         self.diagonal_cache = ({} if diagonal_cache is None
                                else diagonal_cache)
+        self._generator = generator
         self._scope = []
 
     @contextmanager
@@ -66,6 +70,17 @@ class Ctx:
 
     def full_name(self, name):
         return "/".join(self._scope + [name])
+
+    def next_generator(self):
+        """The random stream of this computation (counterpart of the JAX
+        ``Ctx.next_rng``). One generator advances with every draw, where
+        JAX splits its key; the two give different numbers from the same
+        seed either way."""
+        if self._generator is None:
+            raise ValueError(
+                "This computation needs a random stream (a stochastic "
+                "layer) but Ctx was constructed with generator=None.")
+        return self._generator
 
     def get(self, name):
         """The variable ``<scope>/name``; raises KeyError if missing."""

@@ -49,6 +49,72 @@ def test_confusion_kernel_matches_plain(cuda, k, shape):
         preds.cpu(), labels.cpu(), k))
 
 
+def _confusion_pairs(kind, n, k, device):
+    """(predictions, labels), int32: 'uniform' pairs with values outside
+    [0, K); 'runs', labels in runs of 1..400 pixels of one class (some
+    -1) and predictions equal to them except for 1 in 10; 'one_bin',
+    every pixel label 3 and prediction 3."""
+    gen = torch.Generator().manual_seed(n + k)
+    if kind == "uniform":
+        preds = torch.randint(-1, k + 2, (n,), generator=gen)
+        labels = torch.randint(-2, k + 3, (n,), generator=gen)
+    elif kind == "runs":
+        lengths = torch.randint(1, 401, (n,), generator=gen)
+        classes = torch.randint(-1, k, (n,), generator=gen)
+        labels = torch.repeat_interleave(classes, lengths)[:n]
+        noise = torch.randint(0, k, (n,), generator=gen)
+        flip = torch.rand((n,), generator=gen) < 0.1
+        preds = torch.where(flip, noise, labels.clamp_min(0))
+    else:
+        preds = torch.full((n,), 3)
+        labels = torch.full((n,), 3)
+    return (preds.to(device, torch.int32), labels.to(device, torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["aligned", "offset", "misaligned"])
+@pytest.mark.parametrize("n", [294913, 1003])
+@pytest.mark.parametrize("kind", ["uniform", "runs", "one_bin"])
+def test_confusion_entry_points_match_plain(cuda, kind, n, layout):
+    """Both entry points exact on the three distributions, with n % 4 != 0
+    and with pointers offset by one element: both ('offset', the scalar
+    head then 16-byte loads) or only the predictions ('misaligned', all
+    scalar). The accumulator adds to what it holds."""
+    k = 14
+    preds, labels = _confusion_pairs(kind, n + 1, k, cuda)
+    if layout == "offset":
+        preds, labels = preds[1:], labels[1:]
+    elif layout == "misaligned":
+        preds, labels = preds[1:], labels[:-1]
+    else:
+        preds, labels = preds[:-1], labels[:-1]
+    want = confusion.confusion_counts_plain(preds.cpu(), labels.cpu(), k)
+    assert torch.equal(want.float(), confusion.confusion_matrix_plain(
+        preds.cpu(), labels.cpu(), k))
+    before = confusion.KERNEL.launches
+    got = confusion.confusion_matrix(preds, labels, k)
+    start = torch.arange(k * k, device=cuda).reshape(k, k)
+    total = confusion.confusion_accumulate(preds, labels, k, start.clone())
+    torch.cuda.synchronize()
+    assert confusion.KERNEL.launches == before + 2
+    assert torch.equal(got.cpu(), want.float())
+    assert total.dtype == torch.int64
+    assert torch.equal((total - start).cpu(), want)
+
+
+@pytest.mark.gpu
+def test_confusion_accumulate_counts_past_32_bits(cuda):
+    """The 64-bit accumulator carries counts above 2**32 exactly."""
+    k = 14
+    preds, labels = _confusion_pairs("one_bin", 1 << 20, k, cuda)
+    total = torch.zeros((k, k), dtype=torch.int64, device=cuda)
+    total[3, 3] = (1 << 32) - 5
+    confusion.confusion_accumulate(preds, labels, k, total)
+    torch.cuda.synchronize()
+    assert int(total[3, 3]) == (1 << 32) - 5 + (1 << 20)
+    assert int(total.sum()) == int(total[3, 3])
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("experts,k,pixels", [(2, 14, 5000), (3, 20, 777)])
@@ -228,3 +294,43 @@ def test_score_and_serving_on_the_card(cuda, deterministic_cudnn):
         if net.config.get("use_pallas"):
             # the eval step, score, predict, and two groups of two frames
             assert dirichlet.KERNEL.launches - before[1] == 1 + 3 + 3 + 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,config", [
+    ("average", {}),
+    ("variance", {"dropout_rate": 0.5, "num_samples": 3}),
+    ("uncertainty_dirichlet_mix", {"dropout_rate": 0.2, "num_samples": 3}),
+    ("bayesian_fcn", {"dropout_rate": 0.5, "num_samples": 3})])
+def test_fusion_family_score_on_the_card(cuda, deterministic_cudnn, name,
+                                         config):
+    """Each model of the family scores through kernel A, one launch a
+    batch, and its matrix equals the plain version's counts of the same
+    predictions (the model's generator re-seeded before each pass, so
+    both see the same dropout draws)."""
+    if name == "bayesian_fcn":
+        from modular_semantic_segmentation_torch.models import get_model
+        net = get_model(name)(
+            prefix="rgb", modality="rgb", num_units=4, channel_factor=0.25,
+            data_description=(
+                {"labels": np.int32, "rgb": np.float32},
+                {"rgb": (None, None, 3), "labels": (None, None)}, 6),
+            device=cuda, **config)
+    else:
+        if name == "uncertainty_dirichlet_mix":
+            rng = np.random.RandomState(1)
+            config = dict(config, dirichlet_params={
+                "rgb": rng.rand(6, 6) * 4 + 0.5,
+                "depth": rng.rand(6, 6) * 4 + 0.5,
+                "class_counts": rng.randint(100, 1000, 6)})
+        net = _small_fusion(name, cuda, **config)
+    data = _frames()
+    net._generator.manual_seed(11)
+    before = confusion.KERNEL.launches
+    _, got = net.score(data)
+    assert confusion.KERNEL.launches - before == 3
+    net._generator.manual_seed(11)
+    predictions = torch.from_numpy(net.predict(data))
+    want = confusion.confusion_matrix_plain(
+        predictions, torch.from_numpy(data["labels"]), 6)
+    np.testing.assert_array_equal(got, want.numpy())
