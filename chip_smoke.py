@@ -50,17 +50,29 @@ H100) and the CUDA toolkit. Phases, each printing its own lines:
     Average's labels up to ties, Uncertainty-Dirichlet Dirichlet's score
     and BayesianFCN the expert's entropy with no variance; how often bf16
     and f32 fused labels agree on a served frame;
-11. a traced run of each serving path: device time by kernel, busy and
+11. int8 serving: the flagship calibrated on the 4 measure frames and
+    quantized (``quantize_for_serving``; the convs that went int8 per
+    expert printed); the int8 product (im2col + ``torch._int_mm``) exact
+    against its plain version at conv1_2 (packed key), conv2_2, conv3_2,
+    conv4_2, conv5_1 and score_conv5 of the rgb expert, each timed
+    (quantize, im2col, ``_int_mm``) beside cuDNN's bf16 conv of the same
+    layer; Bayes and Dirichlet (kernel B) served in int8 in turns with
+    bf16, with the share of fused labels on which they agree; ``score``
+    in int8 (kernel A); a traced int8 group; and ``dequantize_serving``
+    giving back the bf16 outputs bit for bit;
+12. a traced run of each serving path: device time by kernel, busy and
     idle share per frame (traces in traces/, gitignored);
-12. reference checks on a small input, the CUDA path against the plain
+13. reference checks on a small input, the CUDA path against the plain
     versions on the CPU.
 
 The launch counts are set to 0 just before phase 4 and read just after
 phase 7 (confusion and Dirichlet kernels), set to 0 just before and read
-just after phase 8 (stem conv) and phase 10 (confusion kernel). The
-second-to-last line is the kernels' JSON record and the last line
-``{"ok": true, "device": {...}}``. Any fault exits non-zero with no result
-line; so does a machine without a CUDA card.
+just after phase 8 (stem conv), phase 10 (confusion kernel) and the int8
+path of phase 11 (confusion and Dirichlet kernels, ``_int_mm``). The
+third-to-last line is the int8 product's JSON record (a library call,
+not a kernel of the port), the second-to-last the kernels' and the last
+``{"ok": true, "device": {...}}``. Any fault exits non-zero with no
+result line; so does a machine without a CUDA card.
 """
 
 import json
@@ -556,7 +568,7 @@ def stem_conv_path(expert, frames, card):
         {m: frames[m][:1]}))
     with torch.inference_mode():
         ctx = Ctx(expert.variables, compute_dtype=torch.bfloat16,
-                  diagonal_cache=expert._diagonal_cache)
+                  kernel_cache=expert._kernel_cache)
         layers = encoder_stem(ctx, batch[m], m, batchnorm=False)
         kernel = expert.variables[f"{m}/conv1_2/kernel"]
         bias = expert.variables[f"{m}/conv1_2/bias"]
@@ -716,6 +728,194 @@ def fusion_family(experts, frames, params, cms, card):
           f"vs the rgb expert's max rel {ent_err:.3g} (limit 1e-3), "
           f"variance max {bfcn_var:.3g} (limit 1e-6); bf16 and f32 fused "
           f"labels agree on a served frame: {', '.join(agree)} on {card}")
+
+
+# the int8 product checked and timed at the flagship's layers, on the rgb
+# expert's own inputs: (layer, its input in the layer dict, key prefix)
+INT8_LAYERS = (("conv1_2", "conv1_1", "packed:"), ("conv2_2", "conv2_1", ""),
+               ("conv3_2", "conv3_1", ""), ("conv4_2", "conv4_1", ""),
+               ("conv5_1", "pool4", ""), ("score_conv5", "conv5_3", ""))
+INT8_OPS_PER_S = 1979e12
+
+
+def int8_product_check(net, frames, card):
+    """The int8 product (im2col + ``torch._int_mm``) of the quantized
+    flagship at the layers of INT8_LAYERS, fed the rgb expert's own int8
+    inputs on one frame (the stems through the packed stem, as served):
+    exact (int32) against its plain version; then, each after the 1 GiB
+    L2 flush, the quantize pass, im2col, ``_int_mm``, and cuDNN's bf16
+    conv of the same layer before and after them. Returns the records of
+    the int8-product line."""
+    import torch.nn.functional as F
+    from modular_semantic_segmentation_torch.models.packed_experts import \
+        packed_fcn_stems
+    from modular_semantic_segmentation_torch.models.simple_fcn import fcn
+    from modular_semantic_segmentation_torch.ops import int8_conv
+    from modular_semantic_segmentation_torch.ops.variables import Ctx
+    from modular_semantic_segmentation_torch.utils.profiling import cold_ms
+    m = "rgb"
+    batch = net._preprocess(net._batch_to_device(
+        {k: frames[k][:1] for k in MODALITIES}))
+    with torch.inference_mode():
+        ctx = Ctx(net.variables, compute_dtype=torch.bfloat16,
+                  kernel_cache=net._kernel_cache, act_scales=net.act_scales)
+        stems = packed_fcn_stems(ctx, batch, list(MODALITIES),
+                                 {k: k for k in MODALITIES})
+        layers = fcn(ctx, batch[m], m, NUM_UNITS, NUM_CLASSES,
+                     batchnorm=False, stem_layers=stems[m])
+    records = []
+    for name, source, prefix in INT8_LAYERS:
+        key = f"{prefix}{m}/{name}/input_amax"
+        check(key in net.act_scales, f"int8 product: {key} not quantized")
+        x = layers[source]
+        kernel = net.variables[f"{m}/{name}/kernel"]
+        k, cout = kernel.shape[0], kernel.shape[-1]
+        kq, _ = int8_conv.quantize_kernel(kernel)
+        kq_t = kq.reshape(-1, cout).t().contiguous()
+        ascale = torch.full((1,), net.act_scales[key], dtype=torch.float32,
+                            device=kernel.device)
+        pads = ((k // 2, k // 2), (k // 2, k // 2))
+        geometry = ((k, k), (1, 1), (1, 1), pads)
+        xq = int8_conv.quantize(x, ascale)
+        patches, _ = int8_conv.im2col(xq, *geometry)
+        got = int8_conv.int8_matmul(patches, kq_t)
+        want = int8_conv.int8_matmul_plain(patches, kq_t)
+        torch.cuda.synchronize()
+        check(got.dtype == torch.int32 and torch.equal(got, want),
+              f"int8 product at {name} differs from its plain version by "
+              f"{int((got.long() - want.long()).abs().max())}")
+        xb = x.to(torch.bfloat16).permute(0, 3, 1, 2)
+        wb = kernel.permute(3, 2, 0, 1).to(torch.bfloat16)
+
+        def cudnn():
+            F.conv2d(xb, wb, padding=k // 2)
+
+        library = [cold_ms(cudnn)]
+        quant = cold_ms(lambda: int8_conv.quantize(x, ascale))
+        im2col = cold_ms(lambda: int8_conv.im2col(xq, *geometry))
+        int_mm = cold_ms(lambda: int8_conv.int8_matmul(patches, kq_t))
+        library.append(cold_ms(cudnn))
+        plain = cold_ms(lambda: int8_conv.int8_matmul_plain(patches, kq_t))
+        rows, depth = patches.shape
+        n_bytes = xq.numel() + kq_t.numel() + 4 * rows * cout
+        bound, bound_by = bound_ms(n_bytes, 2.0 * rows * depth * cout,
+                                   INT8_OPS_PER_S)
+        print(f"int8 product {name} [{', '.join(map(str, x.shape))}] -> "
+              f"{cout} ({key}; m {rows}, k {depth}, n {cout}): exact vs "
+              f"plain (int32); quantize {quant:.4f} ms, im2col "
+              f"{im2col:.4f} ms, _int_mm {int_mm:.4f} ms, cuDNN bf16 conv "
+              f"{_runs(library)} ms, plain (float64 product) {plain:.4f} "
+              f"ms, bound of im2col + _int_mm {bound:.4f} ms ({bound_by}) "
+              f"on {card}")
+        records.append({"layer": name, "m": rows, "k": depth, "n": cout,
+                        "quantize_ms": quant, "im2col_ms": im2col,
+                        "int_mm_ms": int_mm,
+                        "cudnn_bf16_ms": sum(library) / 2,
+                        "plain_ms": plain, "bound_ms": bound,
+                        "bound_by": bound_by})
+    return records
+
+
+def int8_serving(bayes, dirich, frames, serve_frames, card):
+    """The int8 serving path of the flagship: calibration on the measure
+    frames and ``quantize_for_serving`` (Bayes; Dirichlet takes the same
+    scales as data), the int8 product checked and timed, Bayes and
+    Dirichlet (kernel B) served in int8 in turns with bf16, ``score`` in
+    int8 (kernel A), a traced int8 group, and ``dequantize_serving``
+    giving back the bf16 labels bit for bit. Returns (the int8-product
+    records, launches of A, B and ``_int_mm`` on the int8 path)."""
+    from modular_semantic_segmentation_torch.ops import int8_conv
+    from modular_semantic_segmentation_torch.ops.cuda import (
+        confusion, dirichlet)
+    start = time.perf_counter()
+    scales = bayes.quantize_for_serving(frames, num_batches=MEASURE_FRAMES)
+    calibrate_s = time.perf_counter() - start
+    check(dirich.quantize_for_serving(scales) is scales,
+          "Dirichlet did not take the flagship's scales")
+    for m in MODALITIES:
+        convs = sorted(k.split("/")[1] + ("*" if k.startswith("packed:")
+                                          else "")
+                       for k in scales if k.split("/")[0].endswith(m))
+        print(f"int8 convs of the {m} expert ({len(convs)}; * = packed "
+              f"key): {', '.join(convs)}")
+        for conv in ("conv1_2", "conv2_1"):
+            check(f"packed:{m}/{conv}/input_amax" in scales,
+                  f"{m} {conv}: no packed int8 scale")
+        check(not any(f"{m}/{conv}/input_amax" in scales
+                      for conv in ("conv1_1", "conv1_2", "conv2_1")),
+              f"{m}: a stem conv has an unpacked int8 scale")
+    print(f"int8 calibration: {MEASURE_FRAMES} measure frames at "
+          f"{HEIGHT}x{WIDTH}, bf16, {len(scales)} convs quantized "
+          f"(min_channels 128, min_pixels {bayes.ptq_min_pixels}) in "
+          f"{calibrate_s:.1f} s host clock on {card}")
+    records = int8_product_check(bayes, frames, card)
+
+    # ---- the int8 path: launch counts from 0
+    for counter in (confusion.KERNEL, dirichlet.KERNEL, int8_conv.INT_MM):
+        counter.launches = 0
+    b_int8 = 0
+    for name, net in (("Bayes", bayes), ("Dirichlet", dirich)):
+        runs = {"bf16": [], "int8": []}
+        labels = {}
+        for mode in ("bf16", "int8", "int8", "bf16"):
+            if mode == "bf16":
+                net.dequantize_serving()
+            else:
+                net.quantize_for_serving(scales)
+            before = dirichlet.KERNEL.launches
+            labels[mode], ms = serve(net, serve_frames)
+            if mode == "int8":
+                b_int8 += dirichlet.KERNEL.launches - before
+            runs[mode] += ms
+            check_labels(labels[mode], f"{name} int8 serving ({mode})")
+        agree = float((labels["int8"] == labels["bf16"]).mean())
+        print(f"{name} serving, int8 against bf16 in turns (bf16, int8, "
+              f"int8, bf16; three runs each after a warm-up, "
+              f"{SERVE_FRAMES} frames at {HEIGHT}x{WIDTH}, unroll "
+              f"{UNROLL}, host clock, synchronised): int8 "
+              f"{_runs(runs['int8'])} ms/frame, bf16 {_runs(runs['bf16'])} "
+              f"ms/frame; int8 and bf16 fused labels agree on "
+              f"{100 * agree:.2f}% of pixels on {card}")
+    check(b_int8 >= 2 * 4 * SERVE_FRAMES, f"int8 Dirichlet serving launched "
+          f"kernel B {b_int8} times")
+    bayes.quantize_for_serving(scales)
+    measures, cm = bayes.score(frames)
+    labelled = int(((frames["labels"] >= 0)
+                    & (frames["labels"] < NUM_CLASSES)).sum())
+    check(cm.sum() == labelled and np.isfinite(measures["mean_IoU"]),
+          f"int8 score counted {cm.sum()} of {labelled} pixels")
+    launches = {"confusion": confusion.KERNEL.launches,
+                "dirichlet": dirichlet.KERNEL.launches,
+                "int_mm": int8_conv.INT_MM.launches}
+    # ---- end of the int8 path
+    print(f"int8 score of {MEASURE_FRAMES} frames: mean_IoU "
+          f"{measures['mean_IoU']:.4f}; int8 path launches: confusion "
+          f"{launches['confusion']}, dirichlet {launches['dirichlet']} "
+          f"({b_int8} in int8 serving), _int_mm {launches['int_mm']}")
+    check(launches["confusion"] > 0, "int8 score launched no kernel A")
+    check(launches["int_mm"] > 0, "the int8 path ran no _int_mm")
+    serving_profile(bayes, serve_frames, "Bayes-int8")
+
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        quantized = forward(bayes, frames)["fused_score"]
+        bayes.dequantize_serving()
+        dirich.dequantize_serving()
+        floated = forward(bayes, frames)
+        bayes.quantize_for_serving(scales)
+        forward(bayes, frames)
+        bayes.dequantize_serving()
+        again = forward(bayes, frames)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    check(not torch.equal(quantized, floated["fused_score"]),
+          "int8 and bf16 fused scores are equal: the int8 path did not run")
+    check(all(torch.equal(again[k], floated[k]) for k in floated),
+          "dequantize_serving does not give back the bf16 outputs")
+    print("dequantize_serving: bf16 outputs after int8 serving equal the "
+          "bf16 outputs before it, bit for bit (cuDNN deterministic)")
+    return records, launches
 
 
 def check_labels(out, what):
@@ -902,6 +1102,8 @@ def main():
     print(f"fusion family path: confusion launches "
           f"{confusion.KERNEL.launches}")
     # ---- end of the fusion family's path
+    int8_records, _ = timed("int8 serving", int8_serving, bayes, dirich,
+                            frames, serve_frames, smi_line)
     timed("profile", lambda: (serving_profile(bayes, serve_frames, "Bayes"),
                               serving_profile(dirich, serve_frames,
                                               "Dirichlet")))
@@ -913,6 +1115,8 @@ def main():
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "kernel_ms", "plain_ms", "bound_ms",
              "bound_by", "library_ms")
+    # the int8 product is a library call, not a kernel of the port
+    print(json.dumps({"int8_product": int8_records}))
     print(json.dumps({"kernels": [{key: r[key] for key in order}
                                   for r in records]}))
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,8 @@ Layout:
                 hand-written Hopper kernels in csrc/
     models/     Estimator eval runtime, SimpleFCN, the fusion family
                 (Bayes, Dirichlet, Average, Variance, Uncertainty-Dirichlet),
-                UncertaintyModel and BayesianFCN
+                UncertaintyModel and BayesianFCN; int8 post-training
+                quantization (quantize, packed_experts)
     utils/      host-side batch plumbing
     serving.py  frame-at-a-time inference server
 
@@ -29,3 +30,5 @@ and nothing of JAX or of the JAX package.
 __version__ = "0.1.0"
 
 from modular_semantic_segmentation_torch.models import get_model  # noqa: F401
+from modular_semantic_segmentation_torch.models.quantize import (  # noqa: F401
+    calibrate_amax, select_scales)

@@ -2,7 +2,9 @@
 under the JAX package's names.
 
 Lazy imports, as in the JAX package; an unknown or not yet ported name
-raises the JAX package's ``UserWarning``.
+raises the JAX package's ``UserWarning``. The int8 serving functions
+(``calibrate_amax``, ``select_scales``, ``can_pack_stems``,
+``packed_fcn_stems``) are exported lazily too.
 """
 
 import importlib
@@ -33,3 +35,17 @@ def get_model(name):
     module = importlib.import_module(
         f"modular_semantic_segmentation_torch.models.{module_name}")
     return getattr(module, cls_name)
+
+
+_FUNCTIONS = {"calibrate_amax": "quantize", "select_scales": "quantize",
+              "can_pack_stems": "packed_experts",
+              "packed_fcn_stems": "packed_experts"}
+
+
+def __getattr__(name):
+    """Lazy exports (PEP 562) of the int8 serving functions."""
+    if name in _FUNCTIONS:
+        module = importlib.import_module(
+            f"modular_semantic_segmentation_torch.models.{_FUNCTIONS[name]}")
+        return getattr(module, name)
+    raise AttributeError(name)

@@ -42,6 +42,8 @@ class BayesianFCN(UncertaintyModel):
     temperature), channel_factor.
     """
 
+    ptq_min_pixels = 0  # VGG16 stack: see SimpleFCN.ptq_min_pixels
+
     def __init__(self, prefix, data_description, modality, output_dir=None,
                  dropout_layers=("pool3", "pool4", "conv4_3", "conv5_3",
                                  "features"),

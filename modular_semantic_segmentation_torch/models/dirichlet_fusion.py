@@ -129,7 +129,7 @@ class DirichletFusion(FusionModel):
         out = {}
         with torch.inference_mode():
             ctx = Ctx(self.variables, compute_dtype=torch.float32,
-                      diagonal_cache=self._diagonal_cache)
+                      kernel_cache=self._kernel_cache)
             for m in self.modalities:
                 prob = test_pipeline(ctx, batch[m],
                                      self.config["prefixes"][m],

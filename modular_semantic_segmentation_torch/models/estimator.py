@@ -3,8 +3,9 @@
 Counterpart of the JAX package's ``models/estimator.py``, eval subset:
 config handling and ``compute_dtype``, ``_preprocess`` (``input_scaling``
 and integer promotion), the eval step, ``predict``, ``score`` (partial
-batches padded with label -1) and npz ``import_weights`` /
-``export_weights``. Training is not ported yet.
+batches padded with label -1), int8 post-training-quantized serving
+(``quantize_for_serving`` / ``dequantize_serving``) and npz
+``import_weights`` / ``export_weights``. Training is not ported yet.
 
 Variables are a flat ``{tf_name: float32 tensor}`` store on ``device``,
 made from the subclass's variable specs and a numpy seed (config ``seed``,
@@ -53,6 +54,15 @@ class Estimator:
             default) raises when there is no card.
     """
 
+    #: whether ``_test_outputs`` runs FCN expert stems through
+    #: ``models/packed_experts.py`` where it applies; quantize_for_serving
+    #: judges stem convs at the packed width only for such classes
+    packs_expert_stems = False
+
+    #: default ``min_pixels`` of quantize_for_serving, the JAX package's:
+    #: 2048 (its AdapNet floor); the VGG/FCN family overrides it to 0
+    ptq_min_pixels = 2048
+
     def __init__(self, data_description, name=None, output_dir=None,
                  batchsize=1, compute_dtype="float32", device="cuda",
                  **config):
@@ -65,7 +75,9 @@ class Estimator:
         self.compute_dtype = resolve_dtype(compute_dtype)
         self.device = resolve_device(device)
         self.global_step = 0
-        self._diagonal_cache = {}
+        self._kernel_cache = {}
+        # int8 PTQ serving: None = float path; set by quantize_for_serving
+        self.act_scales = None
         configure_float32()
         seed = int(config.get("seed", 0))
         self.variables = build_variables(self._variable_specs(), seed=seed,
@@ -122,11 +134,17 @@ class Estimator:
         return out
 
     def _forward(self, batch):
-        """Test outputs for a batch already on the device."""
+        """Test outputs for a batch already on the device, in the current
+        serving mode (``act_scales``)."""
+        return self._forward_with_scales(batch, self.act_scales)
+
+    def _forward_with_scales(self, batch, act_scales):
+        """Test outputs for a batch already on the device, with the int8
+        scales ``act_scales`` (None = float)."""
         with torch.inference_mode():
             ctx = Ctx(self.variables, compute_dtype=self.compute_dtype,
-                      diagonal_cache=self._diagonal_cache,
-                      generator=self._generator)
+                      kernel_cache=self._kernel_cache,
+                      generator=self._generator, act_scales=act_scales)
             return self._test_outputs(ctx, self._preprocess(batch))
 
     def _eval_step(self, batch):
@@ -181,6 +199,56 @@ class Estimator:
         confusion = total.cpu().numpy().astype(np.float32)
         measures = metrics_lib.measures_from_confusion_matrix(confusion)
         return measures, confusion
+
+    # ---------------------------------------------------------- quantization
+    def quantize_for_serving(self, data, num_batches=8, min_channels=128,
+                             percentile=100.0, min_pixels=None):
+        """Enable int8 post-training-quantized inference
+        (``models/quantize.py``).
+
+        Calibrates per-conv activation scales on ``num_batches`` batches
+        of ``data`` (the measure set), then switches the eligible convs
+        (>= ``min_channels`` input channels and >= ``min_pixels`` input
+        positions) to the int8 path for every later ``predict``,
+        ``score`` and newly started server. ``min_pixels=None`` takes the
+        family's ``ptq_min_pixels``. To re-enable without calibrating,
+        pass a scales dict this method returned AS ``data``. Returns the
+        scales dict (empty, with a warning, when no conv qualifies:
+        serving then stays float).
+        """
+        from modular_semantic_segmentation_torch.models import quantize as q
+        if min_pixels is None:
+            min_pixels = self.ptq_min_pixels
+        if isinstance(data, dict) and all(
+                isinstance(v, float) for v in data.values()):
+            scales = data
+        else:
+            amax = q.calibrate_amax(self, data, num_batches=num_batches,
+                                    percentile=percentile)
+            # stem convs are judged at the packed width only for classes
+            # whose _test_outputs packs; select_scales mirrors the
+            # remaining batch-shape gates
+            prefixes = self.config.get("prefixes")
+            packed_prefixes = (
+                list(prefixes.values())
+                if self.packs_expert_stems
+                and isinstance(prefixes, dict) and len(prefixes) >= 2
+                and self.config.get("expert_model") == "fcn"
+                and self.config.get("pack_experts", True) else None)
+            scales = q.select_scales(amax, self.variables,
+                                     min_channels=min_channels,
+                                     min_pixels=min_pixels,
+                                     packed_stem_prefixes=packed_prefixes)
+        if not scales:
+            print("WARNING: quantize_for_serving found no eligible conv "
+                  f"(>= {min_channels} input channels and >= {min_pixels} "
+                  "input positions) — serving stays float.")
+        self.act_scales = scales or None
+        return scales
+
+    def dequantize_serving(self):
+        """Return to the float serving path."""
+        self.act_scales = None
 
     # ------------------------------------------------------------- weight IO
     def export_weights(self, save_dir=None):

@@ -2,32 +2,34 @@
 outputs are fused (counterpart of the JAX package's
 ``models/fusion_base.py``).
 
-The experts run one after the other, each with its own stem. The JAX
-package packs the thin-channel stems of several FCN experts into one
-block-diagonal conv stack by default (``models/packed_experts.py``, a TPU
-lane-occupancy measure with identical numerics); the port runs them
-unpacked and accepts and ignores the ``pack_experts`` option.
+The experts run one after the other. Their FCN stems go through
+``models/packed_experts.py`` when it applies (``pack_experts``, default
+on), which selects the int8 scales of the packed stem convs.
 """
 
 import torch
 
 from modular_semantic_segmentation_torch.ops import layers as ll
 from modular_semantic_segmentation_torch.models.estimator import Estimator
+from modular_semantic_segmentation_torch.models.packed_experts import (
+    can_pack_stems, packed_fcn_stems)
 from modular_semantic_segmentation_torch.models.simple_fcn import (
     fcn, fcn_variable_specs)
 
 
 def test_pipeline(ctx, inputs, prefix, expert_model, num_units, num_classes,
-                  batch_normalization=False, channel_factor=1.0, **_):
+                  batch_normalization=False, channel_factor=1.0,
+                  stem_layers=None, **_):
     """Frozen expert network + softmax 'prob' and argmax 'classification'.
 
     ``batch_normalization`` defaults to False, like the reference's
     hardcoded ``batchnorm=False``; eval-mode BN uses the imported moving
-    statistics when it is on."""
+    statistics when it is on. ``stem_layers``: the expert's precomputed
+    conv1_1..conv2_1 layers (``models/packed_experts.py``), FCN only."""
     if expert_model == "fcn":
         outputs = fcn(ctx, inputs, prefix, num_units, num_classes,
                       batchnorm=batch_normalization,
-                      channel_factor=channel_factor)
+                      channel_factor=channel_factor, stem_layers=stem_layers)
     elif expert_model == "adapnet":
         raise NotImplementedError("AdapNet experts are not ported yet")
     else:
@@ -40,8 +42,16 @@ def test_pipeline(ctx, inputs, prefix, expert_model, num_units, num_classes,
 
 
 def expert_pipelines(ctx, batch, modalities, config):
-    """Per-modality expert outputs, ``{modality: test_pipeline(...)}``."""
-    return {m: test_pipeline(ctx, batch[m], config["prefixes"][m], **config)
+    """Per-modality expert outputs, ``{modality: test_pipeline(...)}``,
+    with the FCN stems through ``packed_fcn_stems`` where it applies."""
+    stems = {}
+    if can_pack_stems(ctx, batch, modalities, config):
+        stems = packed_fcn_stems(
+            ctx, batch, modalities, config["prefixes"],
+            channel_factor=config.get("channel_factor", 1.0),
+            batch_normalization=config.get("batch_normalization", False))
+    return {m: test_pipeline(ctx, batch[m], config["prefixes"][m],
+                             stem_layers=stems.get(m), **config)
             for m in modalities}
 
 
@@ -51,7 +61,20 @@ class FusionModel(Estimator):
     Config:
         prefixes: dict {modality: variable-name prefix} for the experts.
         expert_model: 'fcn' (AdapNet experts are not ported yet).
+        pack_experts: run the FCN stems through ``packed_fcn_stems``
+            (default True).
     """
+
+    # _test_outputs -> expert_pipelines takes the packed stems when they
+    # apply, so quantize_for_serving judges the stem convs at the packed
+    # width
+    packs_expert_stems = True
+
+    @property
+    def ptq_min_pixels(self):
+        """int8 spatial floor by expert family, as in the JAX package: 0
+        for FCN experts, 2048 otherwise."""
+        return 0 if self.config.get("expert_model") == "fcn" else 2048
 
     def __init__(self, name=None, output_dir=None, **config):
         self.modalities = list(config["prefixes"].keys())

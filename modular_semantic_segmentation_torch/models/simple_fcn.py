@@ -40,13 +40,17 @@ def encoder_stem(ctx, inputs, prefix, batchnorm=True, channel_factor=1.0):
     return l
 
 
-def encoder_head(ctx, inputs, prefix, batchnorm=True, channel_factor=1.0):
+def encoder_head(ctx, inputs, prefix, batchnorm=True, channel_factor=1.0,
+                 stem_layers=None):
     """conv1_1 .. pool3. ``channel_factor`` scales every VGG16 width
-    (64..512); 1.0 is the reference architecture."""
+    (64..512); 1.0 is the reference architecture. ``stem_layers``: the
+    conv1_1..conv2_1 layer dict when it was computed already (the fusion
+    experts' packed stems, ``models/packed_experts.py``)."""
     params = {"batch_normalization": batchnorm}
     c = _width(channel_factor)
-    l = encoder_stem(ctx, inputs, prefix, batchnorm=batchnorm,
-                     channel_factor=channel_factor)
+    l = (dict(stem_layers) if stem_layers is not None
+         else encoder_stem(ctx, inputs, prefix, batchnorm=batchnorm,
+                           channel_factor=channel_factor))
     with ctx.scope(prefix):
         l["conv2_2"] = ll.conv2d(ctx, l["conv2_1"], c(128), 3, "conv2_2",
                                  **params)
@@ -115,10 +119,11 @@ def encoder_tail(ctx, l, prefix, num_units, batchnorm=True,
 
 
 def encoder(ctx, inputs, prefix, num_units, batchnorm=True,
-            channel_factor=1.0, dropout_rate=0.0, dropout_layers=()):
+            channel_factor=1.0, dropout_rate=0.0, dropout_layers=(),
+            stem_layers=None):
     """VGG16 image encoder; the encoding has key 'fused'."""
     l = encoder_head(ctx, inputs, prefix, batchnorm=batchnorm,
-                     channel_factor=channel_factor)
+                     channel_factor=channel_factor, stem_layers=stem_layers)
     return encoder_tail(ctx, l, prefix, num_units, batchnorm=batchnorm,
                         channel_factor=channel_factor,
                         dropout_rate=dropout_rate,
@@ -142,13 +147,14 @@ def decoder(ctx, features, prefix, num_units, num_classes, batchnorm=True,
 
 
 def fcn(ctx, inputs, prefix, num_units, num_classes, batchnorm=True,
-        channel_factor=1.0, dropout_rate=0.0, dropout_layers=()):
+        channel_factor=1.0, dropout_rate=0.0, dropout_layers=(),
+        stem_layers=None):
     """Full FCN: encoder + decoder; 'features' in ``dropout_layers`` drops
     the decoder's input too."""
     layers = encoder(ctx, inputs, prefix, num_units, batchnorm=batchnorm,
                      channel_factor=channel_factor,
                      dropout_rate=dropout_rate,
-                     dropout_layers=dropout_layers)
+                     dropout_layers=dropout_layers, stem_layers=stem_layers)
     layers.update(decoder(
         ctx, layers["fused"], prefix, num_units, num_classes,
         batchnorm=batchnorm,
@@ -209,6 +215,10 @@ class SimpleFCN(Estimator):
         num_units: feature units in the FCN.
         batch_normalization, channel_factor: see :func:`fcn`.
     """
+
+    # int8 serving: no spatial floor for the VGG16 stack, as in the JAX
+    # package (Estimator.ptq_min_pixels)
+    ptq_min_pixels = 0
 
     def __init__(self, prefix, data_description, modality, output_dir=None,
                  **config):

@@ -25,6 +25,10 @@ class UncertaintyDirichletFusion(DirichletFusion):
     """Config: everything DirichletFusion takes, plus num_samples and
     dropout_rate for the input-level MC dropout."""
 
+    # its per-expert MC-dropout pipelines bypass expert_pipelines: the
+    # packed stems never run here
+    packs_expert_stems = False
+
     def __init__(self, output_dir=None, **config):
         standard_config = {"num_samples": 10, "dropout_rate": 0.2}
         standard_config.update(config)

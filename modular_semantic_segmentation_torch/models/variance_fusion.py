@@ -12,8 +12,9 @@ the batched pass computes sample for sample what an N-loop would.
 
 The JAX model builds its experts at full width whatever
 ``channel_factor`` says; the port honours ``channel_factor`` here as in
-every other fusion model (at 1.0, the default, the two agree). The JAX
-package's packed stems (``pack_experts``) are not ported.
+every other fusion model (at 1.0, the default, the two agree). The
+deterministic heads take the packed stems (``models/packed_experts.py``)
+like every FCN fusion.
 """
 
 import torch
@@ -21,6 +22,8 @@ import torch
 from modular_semantic_segmentation_torch.ops import layers as ll
 from modular_semantic_segmentation_torch.ops import fusion_math as fm
 from modular_semantic_segmentation_torch.models.fusion_base import FusionModel
+from modular_semantic_segmentation_torch.models.packed_experts import (
+    can_pack_stems, packed_fcn_stems)
 from modular_semantic_segmentation_torch.models.simple_fcn import (
     decoder, encoder_head, encoder_tail)
 
@@ -57,11 +60,17 @@ class VarianceFusion(FusionModel):
     def _test_outputs(self, ctx, batch):
         probs, variances = {}, {}
         num_samples = self.config["num_samples"]
+        channel_factor = self.config.get("channel_factor", 1.0)
+        stems = {}
+        if can_pack_stems(ctx, batch, self.modalities, self.config):
+            stems = packed_fcn_stems(ctx, batch, self.modalities,
+                                     self.config["prefixes"],
+                                     channel_factor=channel_factor)
         for m in self.modalities:
             prefix = self.config["prefixes"][m]
-            head = encoder_head(
-                ctx, batch[m], prefix, batchnorm=False,
-                channel_factor=self.config.get("channel_factor", 1.0))
+            head = encoder_head(ctx, batch[m], prefix, batchnorm=False,
+                                channel_factor=channel_factor,
+                                stem_layers=stems.get(m))
             # the classification probabilities come from a clean pass
             probs[m] = self._tail_prob(ctx, head["pool3"], prefix,
                                        dropout=False)

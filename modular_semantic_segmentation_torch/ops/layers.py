@@ -1,9 +1,10 @@
 """Eval-mode layers in PyTorch, with the JAX package's TF1 semantics.
 
-Counterpart of the JAX package's ``ops/layers.py`` (float path only):
+Counterpart of the JAX package's ``ops/layers.py`` (eval):
     * conv2d: TF SAME padding (asymmetric at stride 2: the extra pad goes
       to the trailing side), dilation, bias, and conv -> batch-norm ->
-      activation ordering;
+      activation ordering; the PTQ calibration record of its input and the
+      int8 serving path (``ops/int8_conv.py``), both keyed by its scope;
     * batch_norm: eval mode from the moving statistics, eps 1e-3, in f32;
     * deconv2d: transposed conv with a frozen kernel stored in the TF
       conv2d_transpose layout [H, W, out, in]; channel-diagonal kernels go
@@ -24,6 +25,7 @@ JAX package leaves them to XLA.
 import torch
 import torch.nn.functional as F
 
+from modular_semantic_segmentation_torch.ops import int8_conv
 from modular_semantic_segmentation_torch.ops.fast_upsample import (
     diagonal_upsample, same_transpose_crop)
 
@@ -88,6 +90,55 @@ def _epilogue(ctx, out, name, activation, batch_normalization):
     return out
 
 
+def percentile(x, q):
+    """The ``q``-th percentile of all of ``x``, linear interpolation
+    between the two nearest ranks, as ``numpy.percentile`` and
+    ``jnp.percentile`` compute it. Through a sort of the flattened tensor:
+    ``torch.quantile`` refuses inputs above 2**24 elements. The position
+    is computed in float64 on the host, the interpolation in float64 of
+    the two values; the result is float32 on ``x``'s device."""
+    flat = torch.sort(x.reshape(-1)).values
+    position = q / 100.0 * (flat.numel() - 1)
+    lo = int(position)
+    hi = min(lo + 1, flat.numel() - 1)
+    low, high = flat[lo].double(), flat[hi].double()
+    return (low + (high - low) * (position - lo)).float()
+
+
+def _calibrate(ctx, x, quant_key):
+    """Record the running max (or ``ctx.calibrate_percentile``) of |x| in
+    float32 under ``quant_key``, and x's H*W beside it."""
+    absx = torch.abs(x.float())
+    q = ctx.calibrate_percentile
+    amax = torch.amax(absx) if q >= 100.0 else percentile(absx, q)
+    if quant_key in ctx.amax:
+        amax = torch.maximum(ctx.amax[quant_key], amax)
+    ctx.amax[quant_key] = amax
+    ctx.amax[ctx.full_name("input_pixels")] = float(x.shape[1] * x.shape[2])
+
+
+def _int8_operands(ctx, kernel, act_scale):
+    """(int8 kernel as [out, kh*kw*in], the float32 activation scale on the
+    kernel's device, the float32 dequantization ``ascale * kscale`` per
+    output channel), kept in ``ctx.kernel_cache`` beside the kernel and
+    the scale they were made from: the serving loop makes them once, and
+    no frame copies a scale to the card (a copy from pageable host memory
+    would wait for the stream)."""
+    key = ctx.full_name("kernel") + ":int8"
+    cached = ctx.kernel_cache.get(key)
+    if (cached is not None and cached[0] is kernel
+            and cached[1] == act_scale):
+        return cached[2]
+    kq, kscale = int8_conv.quantize_kernel(kernel)
+    # the float32 of the stored Python float, as jnp.float32 gives it
+    ascale = torch.full((1,), act_scale, dtype=torch.float32,
+                        device=kernel.device)
+    value = (kq.reshape(-1, kq.shape[-1]).t().contiguous(), ascale,
+             ascale * kscale)
+    ctx.kernel_cache[key] = (kernel, act_scale, value)
+    return value
+
+
 def conv2d(ctx, x, filters, kernel_size, name, strides=1, dilation_rate=1,
            activation=torch.relu, batch_normalization=False):
     """2-D convolution, TF SAME padding, with bias and optional
@@ -95,6 +146,14 @@ def conv2d(ctx, x, filters, kernel_size, name, strides=1, dilation_rate=1,
 
     Order as in the JAX package: conv + bias (in float32) -> cast to the
     compute dtype -> [BN] -> activation. Kernel layout [H, W, in, out].
+
+    With ``ctx.calibrate`` the input's |max| (or percentile) is recorded
+    first (:func:`_calibrate`). When ``ctx.act_scales`` holds this conv's
+    ``<scope>/input_amax`` (and the context is not calibrating), the conv
+    runs in int8, as the JAX package's int8 branch: per-tensor input
+    scale, per-output-channel kernel scale, int32 sums, dequantized to
+    float32 by ``ascale * kscale`` before the bias. A conv whose key is
+    not there stays on the float path.
     """
     kh, kw = _pair(kernel_size)
     sh, sw = _pair(strides)
@@ -105,9 +164,23 @@ def conv2d(ctx, x, filters, kernel_size, name, strides=1, dilation_rate=1,
         kernel = ctx.get("kernel")
         _check_shape(kernel, (kh, kw, in_ch, int(filters)),
                      ctx.full_name("kernel"))
-        xd = x.to(dtype)
+        quant_key = ctx.full_name("input_amax")
+        if ctx.calibrate:
+            _calibrate(ctx, x, quant_key)
         ph = _same_pads(h, kh, sh, dh)
         pw = _same_pads(w, kw, sw, dw)
+        if (not ctx.calibrate and ctx.act_scales is not None
+                and quant_key in ctx.act_scales):
+            kq_t, ascale, dequant = _int8_operands(
+                ctx, kernel, ctx.act_scales[quant_key])
+            acc = int8_conv.int8_conv2d(
+                int8_conv.quantize(x, ascale), kq_t, (kh, kw), (sh, sw),
+                (dh, dw), (ph, pw))
+            # int32 * float32 [out] promotes to float32 in one pass
+            out = torch.mul(acc, dequant).add_(ctx.get("bias"))
+            return _epilogue(ctx, out, name, activation,
+                             batch_normalization)
+        xd = x.to(dtype)
         if ph[0] == ph[1] and pw[0] == pw[1]:
             pad = (ph[0], pw[0])
         else:
@@ -126,18 +199,18 @@ def conv2d(ctx, x, filters, kernel_size, name, strides=1, dilation_rate=1,
 def _channel_diagonal(ctx, kernel):
     """True when the [k, k, C, C] kernel has no off-diagonal weight.
 
-    The answer is kept in ``ctx.diagonal_cache`` beside the kernel it was
+    The answer is kept in ``ctx.kernel_cache`` beside the kernel it was
     computed for, so a frame served with the same kernel does not wait for
     the device to check again."""
     key = ctx.full_name("kernel")
-    cached = ctx.diagonal_cache.get(key)
+    cached = ctx.kernel_cache.get(key)
     if cached is not None and cached[0] is kernel:
         return cached[1]
     idx = torch.arange(kernel.shape[2], device=kernel.device)
     off = kernel.clone()
     off[:, :, idx, idx] = 0.0
     diagonal = not bool(off.any())
-    ctx.diagonal_cache[key] = (kernel, diagonal)
+    ctx.kernel_cache[key] = (kernel, diagonal)
     return diagonal
 
 

@@ -41,21 +41,37 @@ class Ctx:
         variables: flat dict TF name -> tensor.
         compute_dtype: torch dtype inside convolutions; variables stay
             float32.
-        diagonal_cache: dict the caller keeps across calls, in which
-            ``deconv2d`` remembers whether a kernel is channel-diagonal
-            (so the check does not wait for the device on every frame).
+        kernel_cache: dict the caller keeps across calls, in which layers
+            keep what they derive from a kernel beside the kernel:
+            ``deconv2d`` whether it is channel-diagonal (so the check does
+            not wait for the device on every frame), the int8 ``conv2d``
+            its quantized form.
         generator: ``torch.Generator`` on the device of the variables,
             the random stream that stochastic layers (MC dropout) draw
             from; None for a purely deterministic computation.
+        act_scales: optional dict full scope name -> float activation
+            scale; a conv whose ``<scope>/input_amax`` it holds runs the
+            int8 serving path (``models/quantize.py``). None = float
+            serving.
+        calibrate: when True, convs record the absolute max of their
+            input in ``self.amax`` under ``<scope>/input_amax`` (a running
+            max over re-entries of the scope) and the input's H*W under
+            ``<scope>/input_pixels``.
+        calibrate_percentile: below 100, calibration records that
+            percentile of |input| instead of its max.
     """
 
     def __init__(self, variables, compute_dtype=torch.float32,
-                 diagonal_cache=None, generator=None):
+                 kernel_cache=None, generator=None, act_scales=None,
+                 calibrate=False, calibrate_percentile=100.0):
         self.variables = variables
         self.compute_dtype = compute_dtype
-        self.diagonal_cache = ({} if diagonal_cache is None
-                               else diagonal_cache)
+        self.kernel_cache = {} if kernel_cache is None else kernel_cache
         self._generator = generator
+        self.act_scales = act_scales
+        self.calibrate = calibrate
+        self.calibrate_percentile = calibrate_percentile
+        self.amax = {}
         self._scope = []
 
     @contextmanager
@@ -67,6 +83,18 @@ class Ctx:
         finally:
             if name:
                 self._scope.pop()
+
+    @contextmanager
+    def serving_scales(self, act_scales):
+        """Run the enclosed layers with ``act_scales`` in place of this
+        context's own (the packed expert stems,
+        ``models/packed_experts.py``)."""
+        saved = self.act_scales
+        self.act_scales = act_scales
+        try:
+            yield self
+        finally:
+            self.act_scales = saved
 
     def full_name(self, name):
         return "/".join(self._scope + [name])

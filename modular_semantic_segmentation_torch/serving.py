@@ -23,6 +23,12 @@ from modular_semantic_segmentation_torch.models.estimator import to_numpy
 class InferenceServer:
     """Streaming frame-at-a-time inference over an Estimator.
 
+    The serving mode (float, or int8 with the estimator's
+    ``act_scales``) is fixed when the first group is dispatched, as the
+    JAX package's server fixes it when it traces its group program: a
+    server that has served keeps its mode across a later
+    ``quantize_for_serving`` or ``dequantize_serving``.
+
     Args:
         estimator: any Estimator of the port (expert or fusion model).
         unroll: frames per group.
@@ -39,19 +45,25 @@ class InferenceServer:
         self.unroll = unroll
         self.max_in_flight = max_in_flight
         self._attr = output_attr
+        self._act_scales = None
+        self._mode_fixed = False
 
     def _dispatch(self, frames):
         """Queue one (possibly short) group. Returns (outputs, valid,
         event): host tensors that hold the outputs once ``event`` (None
         on the CPU) has completed."""
         net = self._net
+        if not self._mode_fixed:
+            self._act_scales = net.act_scales
+            self._mode_fixed = True
         valid = len(frames)
         padded = frames + [frames[-1]] * (self.unroll - valid)
         outs = []
         for frame in padded:
             batch = {k: v[None] if hasattr(v, "ndim")
                      else np.asarray(v)[None] for k, v in frame.items()}
-            outs.append(net._forward(net._batch_to_device(batch))[self._attr])
+            outs.append(net._forward_with_scales(
+                net._batch_to_device(batch), self._act_scales)[self._attr])
         if net.device.type != "cuda":
             return outs, valid, None
         host = []

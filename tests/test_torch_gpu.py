@@ -12,7 +12,9 @@ Dirichlet labels may differ from the plain version only where the plain
 scores of the two labels are within 1e-5 relative (argmax ties); the stem
 conv, bfloat16 out, within 1e-2 of the largest plain value; the Dirichlet
 sufficient statistics on the card within rtol 1e-4 of the CPU's (float32
-sums in another order).
+sums in another order); the int8 product of the int8 serving path exact
+(int32) against its plain version, and an int8 model's labels on the
+card equal to the CPU's.
 """
 
 import numpy as np
@@ -23,6 +25,7 @@ from modular_semantic_segmentation_torch.ops.cuda import build
 from modular_semantic_segmentation_torch.ops.cuda import confusion
 from modular_semantic_segmentation_torch.ops.cuda import dirichlet
 from modular_semantic_segmentation_torch.ops.cuda import stem_conv
+from modular_semantic_segmentation_torch.ops import int8_conv
 
 
 @pytest.fixture
@@ -334,3 +337,86 @@ def test_fusion_family_score_on_the_card(cuda, deterministic_cudnn, name,
     want = confusion.confusion_matrix_plain(
         predictions, torch.from_numpy(data["labels"]), 6)
     np.testing.assert_array_equal(got, want.numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,cout", [
+    ((1, 96, 48, 512), 512),    # conv4_2 of the flagship expert
+    ((1, 384, 192, 128), 128),  # conv2_2
+    ((1, 48, 24, 512), 64)])    # score_conv5 (1x1 below)
+def test_int8_product_matches_plain(cuda, shape, cout):
+    """torch._int_mm on im2col patches at the flagship's shapes, exact
+    against the plain int32 product of the same patches."""
+    gen = torch.Generator(device=cuda).manual_seed(cout)
+    kernel = 1 if cout == 64 else 3
+    xq = torch.randint(-127, 128, shape, generator=gen, device=cuda,
+                       dtype=torch.int8)
+    kq_t = torch.randint(-127, 128, (cout, kernel * kernel * shape[-1]),
+                         generator=gen, device=cuda, dtype=torch.int8)
+    pad = kernel // 2
+    pads = ((pad, pad), (pad, pad))
+    before = int8_conv.INT_MM.launches
+    got = int8_conv.int8_conv2d(xq, kq_t, (kernel, kernel), (1, 1), (1, 1),
+                                pads)
+    assert int8_conv.INT_MM.launches == before + 1
+    patches, _ = int8_conv.im2col(xq, (kernel, kernel), (1, 1), (1, 1), pads)
+    want = int8_conv.int8_matmul_plain(patches, kq_t)
+    assert got.dtype == torch.int32
+    assert torch.equal(got.reshape(want.shape), want)
+    # im2col on the card equals its plain CPU run
+    assert torch.equal(patches.cpu(), int8_conv.im2col(
+        xq.cpu(), (kernel, kernel), (1, 1), (1, 1), pads)[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(16, 576, 64), (4, 4608, 512),
+                                   (64, 28, 64), (64, 576, 14)])
+def test_int8_product_raises_on_shapes_int_mm_refuses(cuda, m, k, n):
+    a = torch.ones((m, k), dtype=torch.int8, device=cuda)
+    b_t = torch.ones((n, k), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="_int_mm needs"):
+        int8_conv.int8_matmul(a, b_t)
+
+
+@pytest.mark.gpu
+def test_int8_serving_on_the_card_matches_the_cpu(cuda, deterministic_cudnn):
+    """A Bayes model quantized on the card: the same scales as on the CPU
+    (rtol 1e-5), its int8 scores through kernel A, and the int8 expert
+    classifications equal to the CPU's except where the CPU's
+    probabilities of the two classes are within 2**-5 relative."""
+    from modular_semantic_segmentation_torch.models import get_model
+    rng = np.random.RandomState(1)
+    cms = {m: rng.rand(6, 6) + np.eye(6) * 5 for m in ("rgb", "depth")}
+    data = _frames()
+    # num_units 8: the score convs' n must be a multiple of 8 for _int_mm
+    nets = {d: get_model("bayes_mix")(
+        data_description=(
+            {"labels": np.int32, "rgb": np.float32, "depth": np.float32},
+            {"rgb": (None, None, 3), "depth": (None, None, 1),
+             "labels": (None, None)}, 6),
+        num_units=8, channel_factor=0.25, expert_model="fcn",
+        prefixes={"rgb": "rgb", "depth": "depth"}, confusion_matrices=cms,
+        device=d) for d in ("cpu", cuda)}
+    nets[cuda].variables = {k: v.to(cuda)
+                            for k, v in nets["cpu"].variables.items()}
+    scales = {d: net.quantize_for_serving(data, num_batches=3,
+                                          min_channels=16)
+              for d, net in nets.items()}
+    assert set(scales[cuda]) == set(scales["cpu"])
+    assert any(k.startswith("packed:") for k in scales[cuda])
+    for key, value in scales["cpu"].items():
+        np.testing.assert_allclose(scales[cuda][key], value, rtol=1e-5)
+    before = (confusion.KERNEL.launches, int8_conv.INT_MM.launches)
+    nets[cuda].score(data)
+    assert confusion.KERNEL.launches - before[0] == 3
+    assert int8_conv.INT_MM.launches > before[1]
+    for m in ("rgb", "depth"):
+        attr = f"{m}_classification"
+        got = nets[cuda].predict(data, output_attr=attr)
+        want = nets["cpu"].predict(data, output_attr=attr)
+        prob = nets["cpu"].predict(data, output_attr=f"{m}_prob")
+        differ = got != want
+        assert differ.mean() <= 0.02
+        own = np.take_along_axis(prob[differ], want[differ][:, None], 1)
+        other = np.take_along_axis(prob[differ], got[differ][:, None], 1)
+        assert np.all(own - other <= 2.0 ** -5 * own)
