@@ -62,13 +62,27 @@ H100) and the CUDA toolkit. Phases, each printing its own lines:
     giving back the bf16 outputs bit for bit;
 12. a traced run of each serving path: device time by kernel, busy and
     idle share per frame (traces in traces/, gitignored);
-13. reference checks on a small input, the CUDA path against the plain
-    versions on the CPU.
+13. training: the flagship's rgb expert (SimpleFCN, batch norm, adam,
+    batch 1, 768x384) fitted for 20 steps on 4 frames whose labels are
+    the red channel of 32x32 blocks quantized to the 14 classes (a void
+    border), in float32 and in bf16, validated on 2 held-out frames every
+    5 steps (``score``, kernel A, its counts held against the plain
+    version); then BayesianFCN (the float32 run's weights, dropout 0.5)
+    for 3 steps. Gates: finite losses, the last below the first (the two
+    20-step runs), the frozen deconv kernels bit for bit, the BN moving
+    statistics moved. Printed: ms per train step (median after 2 warm-up
+    steps, host clock around synchronised steps), peak memory, the
+    losses, kernel A's launches, and a traced bf16 step by kernel;
+14. reference checks on a small input, the CUDA path against the plain
+    versions on the CPU; among them one float32 SGD(1.0) train step on
+    the card against the CPU's and against float64 on the card, each max
+    pool's routes recorded, and a TF32 control step that must fail.
 
 The launch counts are set to 0 just before phase 4 and read just after
 phase 7 (confusion and Dirichlet kernels), set to 0 just before and read
-just after phase 8 (stem conv), phase 10 (confusion kernel) and the int8
-path of phase 11 (confusion and Dirichlet kernels, ``_int_mm``). The
+just after phase 8 (stem conv), phase 10 (confusion kernel), the int8
+path of phase 11 (confusion and Dirichlet kernels, ``_int_mm``) and
+phase 13 (confusion kernel). The
 third-to-last line is the int8 product's JSON record (a library call,
 not a kernel of the port), the second-to-last the kernels' and the last
 ``{"ok": true, "device": {...}}``. Any fault exits non-zero with no
@@ -78,6 +92,7 @@ result line; so does a machine without a CUDA card.
 import json
 import os
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -108,6 +123,12 @@ STEM_RTOL = 1e-2
 TRACE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "traces")
 TIE_RTOL = 1e-5
+# the float32 train step on the card against the CPU and against float64:
+# the loss, each tensor's delta over its scale, and the tensors that no
+# max pool routing its gradient differently reaches (arithmetic alone)
+STEP_LOSS_RTOL = 1e-5
+STEP_ATOL = 1e-3
+ARITHMETIC_ATOL = 1e-5
 MODALITIES = ("rgb", "depth")
 DATA_DESCRIPTION = (
     {"labels": np.int32, "rgb": np.float32, "depth": np.float32},
@@ -918,6 +939,188 @@ def int8_serving(bayes, dirich, frames, serve_frames, card):
     return records, launches
 
 
+TRAIN_FRAMES = 4
+TRAIN_STEPS = 20
+BAYES_TRAIN_STEPS = 3
+VALIDATION_INTERVAL = 5
+TRAIN_WARMUP = 2
+TRAIN_BLOCK = 32
+TRAIN_BORDER = 16
+TRAIN_DESCRIPTION = (
+    {"labels": np.int32, "rgb": np.float32},
+    {"rgb": (None, None, 3), "labels": (None, None)}, NUM_CLASSES)
+
+
+def learnable_frames(seed, count):
+    """rgb frames whose labels are a function of the input that the FCN
+    can learn: the red channel of 32x32 blocks (the encoder's coarsest
+    cell) quantized to the classes, a little noise on every channel, and
+    a void (-1) border of 16 pixels."""
+    rng = np.random.RandomState(seed)
+    blocks = rng.rand(count, HEIGHT // TRAIN_BLOCK, WIDTH // TRAIN_BLOCK, 3)
+    rgb = (np.repeat(np.repeat(blocks, TRAIN_BLOCK, 1), TRAIN_BLOCK, 2)
+           * 247 + rng.rand(count, HEIGHT, WIDTH, 3) * 8)
+    labels = np.minimum((blocks[..., 0] * NUM_CLASSES).astype(np.int32),
+                        NUM_CLASSES - 1)
+    labels = np.repeat(np.repeat(labels, TRAIN_BLOCK, 1), TRAIN_BLOCK, 2)
+    b = TRAIN_BORDER
+    labels[:, :b] = labels[:, -b:] = -1
+    labels[:, :, :b] = labels[:, :, -b:] = -1
+    return {"rgb": rgb.astype(np.float32), "labels": labels.astype(np.int32)}
+
+
+def train_run(net, frames, steps, validation=None):
+    """``net.fit`` for ``steps`` steps, observed from outside: each train
+    step on the host clock between two synchronisations and its loss;
+    each validation ``score`` with its counts held against kernel A's
+    plain version on the same predictions. Returns (ms per step, losses,
+    peak bytes allocated, validations)."""
+    from modular_semantic_segmentation_torch.ops import metrics
+    from modular_semantic_segmentation_torch.ops.cuda import confusion
+    step, score, accumulate = (net._train_step, net.score,
+                               metrics.confusion_accumulate)
+    times, losses, plain, validations = [], [], [], []
+
+    def timed_step(*args):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = step(*args)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - start) * 1e3)
+        losses.append(float(out[2]))
+        return out
+
+    def plain_too(predictions, labels, k, total):
+        plain.append(confusion.confusion_counts_plain(predictions, labels,
+                                                      k))
+        return accumulate(predictions, labels, k, total)
+
+    def checked_score(data, *args, **kwargs):
+        plain.clear()
+        measures, counts = score(data, *args, **kwargs)
+        want = sum(plain).cpu().numpy().astype(np.float32)
+        check(np.array_equal(counts, want), "validation: kernel A's "
+              "confusion counts differ from its plain version")
+        validations.append(int(counts.sum()))
+        return measures, counts
+
+    net._train_step, net.score = timed_step, checked_score
+    metrics.confusion_accumulate = plain_too
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        net.fit(frames, steps, output=False, validation_dataset=validation,
+                validation_interval=VALIDATION_INTERVAL)
+    finally:
+        del net._train_step, net.score
+        metrics.confusion_accumulate = accumulate
+    return times, losses, torch.cuda.max_memory_allocated(), validations
+
+
+def check_trained(net, before, losses, what, falls=True):
+    """Gates of a training run: finite losses, falling ones, the frozen
+    deconv kernels bit for bit, the BN moving statistics moved."""
+    check(np.isfinite(losses).all(), f"{what}: non-finite loss {losses}")
+    if falls:
+        check(losses[-1] < losses[0], f"{what}: the loss did not fall "
+              f"({losses[0]:.4f} -> {losses[-1]:.4f})")
+    frozen = [k for k in before if k.endswith(("upscore_conv5/kernel",
+                                               "upscore/kernel"))]
+    check(len(frozen) == 2 and not any(net.trainable[k] for k in frozen),
+          f"{what}: the deconv kernels are not frozen")
+    for k in frozen:
+        check(torch.equal(net.variables[k], before[k]),
+              f"{what}: frozen {k} changed")
+    moving = [k for k in before if k.endswith("moving_mean")]
+    check(moving and all(not torch.equal(net.variables[k], before[k])
+                         for k in moving),
+          f"{what}: a BN moving mean did not move")
+
+
+def train_profile(net, frames):
+    """torch.profiler over one bf16 train step (a separate, traced step
+    after the timed ones): device time by kernel, busy and idle share.
+    The trace is written to traces/train_bf16/trace.json."""
+    from torch.autograd import DeviceType
+    from modular_semantic_segmentation_torch.utils.profiling import trace
+    batch = net._batch_to_device({k: v[:1] for k, v in frames.items()})
+    net._train_step(net.variables, net.opt_state, batch)
+    torch.cuda.synchronize()
+    with trace(os.path.join(TRACE_DIR, "train_bf16")) as prof:
+        start = time.perf_counter()
+        net._train_step(net.variables, net.opt_state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - start) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    if not kernels:
+        print("bf16 train step profile: not measured (no device time "
+              "recorded)")
+        return
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    launches = sum(e.count for e in kernels)
+    print(f"bf16 train step profile, traced: device busy {busy:.3f} ms of "
+          f"{wall:.3f} ms wall, idle share {1 - busy / wall:.2f}, "
+          f"{launches} kernel launches; top kernels (ms, launches, name):")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"  {e.self_device_time_total / 1e3:8.3f} x{e.count:4d}  "
+              f"{e.key[:100]}")
+
+
+def training(card):
+    """The training path: the flagship's rgb expert (SimpleFCN, 768x384,
+    14 classes, num_units 64, batch norm, adam, batch 1) fitted on 4
+    learnable frames for TRAIN_STEPS steps in float32 and in bf16, each
+    validated on 2 held-out frames every VALIDATION_INTERVAL steps
+    (``score``, kernel A); then BayesianFCN with the float32 run's
+    weights (dropout 0.5) for BAYES_TRAIN_STEPS steps. Returns kernel A's
+    launches on this path."""
+    from modular_semantic_segmentation_torch.models import get_model
+    from modular_semantic_segmentation_torch.ops.cuda import confusion
+    frames = learnable_frames(5, TRAIN_FRAMES)
+    validation = learnable_frames(6, 2)
+    config = dict(prefix="rgb", modality="rgb",
+                  data_description=TRAIN_DESCRIPTION, num_units=NUM_UNITS,
+                  batch_normalization=True, trainer="adam", batchsize=1)
+    confusion.KERNEL.launches = 0
+    trained = None
+    for dtype in ("float32", "bfloat16"):
+        net = get_model("simple_fcn")(compute_dtype=dtype, **config)
+        before = {k: v.clone() for k, v in net.variables.items()}
+        times, losses, peak, validations = train_run(net, frames,
+                                                     TRAIN_STEPS, validation)
+        check_trained(net, before, losses, f"{dtype} training")
+        check(validations and all(n == validations[0] for n in validations),
+              f"{dtype} training: validations counted {validations}")
+        steady = times[TRAIN_WARMUP:]
+        print(f"training {dtype}: {statistics.median(steady):.3f} ms per "
+              f"train step (median of {len(steady)} after {TRAIN_WARMUP} "
+              f"warm-up steps; min {min(steady):.3f}, max {max(steady):.3f};"
+              f" host clock, synchronised) at {HEIGHT}x{WIDTH}, batch 1, "
+              f"peak memory {peak / 2**30:.3f} GiB, {len(validations)} "
+              f"validations of {validations[0]} labelled pixels on {card}")
+        print(f"training {dtype} losses: "
+              + " ".join(f"{x:.4f}" for x in losses))
+        if dtype == "float32":
+            trained = net
+        else:
+            train_profile(net, frames)
+    bayes = get_model("bayesian_fcn")(dropout_rate=0.5, **config)
+    bayes.variables = {k: v.clone() for k, v in trained.variables.items()}
+    before = {k: v.clone() for k, v in bayes.variables.items()}
+    times, losses, peak, _ = train_run(bayes, frames, BAYES_TRAIN_STEPS)
+    check_trained(bayes, before, losses, "BayesianFCN training",
+                  falls=False)
+    print(f"training BayesianFCN float32, dropout 0.5: "
+          f"{_runs(times)} ms per step (host clock, synchronised), peak "
+          f"memory {peak / 2**30:.3f} GiB, losses "
+          + " ".join(f"{x:.4f}" for x in losses))
+    launches = confusion.KERNEL.launches
+    check(launches > 0, "the training path launched no confusion kernel")
+    print(f"training path: confusion launches {launches}")
+    return launches
+
+
 def check_labels(out, what):
     check(out.shape == (SERVE_FRAMES, HEIGHT, WIDTH),
           f"{what}: output shape {out.shape}")
@@ -975,9 +1178,129 @@ def reference_checks(experts, bayes, dirich):
               "the card differ from the CPU's")
         check(torch.equal(stats["class_counts"].cpu(), counts),
               "Dirichlet class counts on the card differ from the CPU's")
+    step_summary = train_step_check(experts["rgb"], cpu_experts["rgb"],
+                                    small)
     print(f"reference checks (64x96, CPU plain versions): expert prob max "
           f"diff {worst:.3g}; Bayes labels equal; Dirichlet labels equal "
-          f"up to ties; Dirichlet sufficient statistics within rtol 1e-4")
+          f"up to ties; Dirichlet sufficient statistics within rtol 1e-4; "
+          f"{step_summary}")
+
+
+def sgd_step(net, batch, dtype=torch.float32):
+    """One SGD(1.0) train step of ``net`` on ``batch``, its variables and
+    convs in ``dtype``: (loss, {trainable name: delta, float64 on the
+    host}, [argmax indices of each max pool, on the host]). With SGD(1.0)
+    a delta is the negative gradient."""
+    import torch.nn.functional as F
+    from modular_semantic_segmentation_torch.ops import layers as ll
+    from modular_semantic_segmentation_torch.ops import optimizers
+    routes, max_pool2d = [], ll.max_pool2d
+
+    def recorded(ctx, x, pool_size, strides):
+        out, idx = F.max_pool2d(x.permute(0, 3, 1, 2), pool_size, strides,
+                                return_indices=True)
+        routes.append(idx.cpu())
+        return out.permute(0, 2, 3, 1)
+
+    net._optimizer = optimizers.SGD(1.0)
+    variables = {k: v.to(dtype) for k, v in net.variables.items()}
+    compute_dtype = net.compute_dtype
+    net.compute_dtype, ll.max_pool2d = dtype, recorded
+    try:
+        new, _, loss = net._train_step(variables, {}, batch)
+    finally:
+        net.compute_dtype, ll.max_pool2d = compute_dtype, max_pool2d
+    return (float(loss), {k: (new[k] - variables[k]).double().cpu()
+                          for k in new if net.trainable[k]}, routes)
+
+
+def step_errors(got, want):
+    """How far one step's deltas are from a reference step's, each
+    tensor's largest difference over the reference's largest |delta| (at
+    least 1e-3): (worst, its tensor, worst over the tensors no max pool
+    that routes differently can reach, its tensor, windows routed
+    differently by each pool).
+
+    A pool window whose two largest inputs are within rounding of each
+    other may send its gradient to another input in one step than in the
+    other: the pool's output, and so every layer after it, is the same,
+    but the convs before it take another gradient, in one output channel
+    of the conv under the pool a difference of about one position's share
+    of the reduction. That is a different route, not an arithmetic
+    error; the tensors after the deepest such pool show the arithmetic
+    alone."""
+    rerouted = [int((a != b).sum()) for a, b in zip(got[2], want[2])]
+    deepest = max((i + 1 for i, n in enumerate(rerouted) if n), default=0)
+    errors = {k: float((got[1][k] - ref).abs().max())
+              / max(float(ref.abs().max()), 1e-3)
+              for k, ref in want[1].items()}
+
+    def reached(name):
+        block = re.search(r"/conv(\d)_", name)
+        return block is not None and int(block.group(1)) <= deepest
+    name = max(errors, key=errors.get)
+    clean = [k for k in errors if not reached(k)]
+    check(clean, "train step: every tensor is before a rerouted pool")
+    clean_name = max(clean, key=errors.get)
+    return errors[name], name, errors[clean_name], clean_name, rerouted
+
+
+def channel_share(got, want, name):
+    """The share of the squared difference of kernel ``name``'s delta that
+    lies in its one most-different output channel."""
+    diff = (got[1][name] - want[1][name]).reshape(
+        -1, want[1][name].shape[-1]).pow(2).sum(0)
+    return float(diff.max() / diff.sum().clamp_min(1e-300))
+
+
+def train_step_check(card_net, cpu_net, batch):
+    """One float32 SGD(1.0) train step of the rgb expert (no batch norm, as
+    the fusion experts have it) on the card, held against the same step on
+    the CPU (loss within rtol STEP_LOSS_RTOL, each tensor's delta within
+    STEP_ATOL of its scale) and against the step in float64 on the card
+    (the same, and within ARITHMETIC_ATOL on the tensors no rerouted pool
+    reaches). A control step with TF32 on must fail the float64 check, so
+    the check sees a TF32-class backward. Returns the summary."""
+    from modular_semantic_segmentation_torch.ops.layers import \
+        configure_float32
+    cpu32 = sgd_step(cpu_net, batch)
+    card32 = sgd_step(card_net, batch)
+    card64 = sgd_step(card_net, batch, torch.float64)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = sgd_step(card_net, batch)
+    finally:
+        configure_float32()
+    loss_rel = abs(card32[0] - cpu32[0]) / abs(cpu32[0])
+    check(loss_rel <= STEP_LOSS_RTOL, f"train step: loss on the card "
+          f"{card32[0]}, on the CPU {cpu32[0]}")
+    cpu_worst, cpu_name, _, _, cpu_routes = step_errors(card32, cpu32)
+    check(cpu_worst <= STEP_ATOL, f"train step: {cpu_name}'s delta on the "
+          f"card differs from the CPU's by {cpu_worst} of its scale")
+    worst, name, clean, clean_name, routes = step_errors(card32, card64)
+    check(worst <= STEP_ATOL and clean <= ARITHMETIC_ATOL,
+          f"train step: float32 on the card against float64: {name} "
+          f"{worst}, {clean_name} {clean} of its scale (rerouted pool "
+          f"windows {routes})")
+    tf_worst, tf_name, tf_clean, tf_clean_name, tf_routes = step_errors(
+        tf32, card64)
+    check(tf_worst > STEP_ATOL and tf_clean > ARITHMETIC_ATOL,
+          f"train step: the TF32 control passes the float64 check ({tf_name}"
+          f" {tf_worst}, {tf_clean_name} {tf_clean})")
+    share = (f", {channel_share(card32, card64, name):.3f} of it in one "
+             f"output channel" if card64[1][name].ndim == 4 else "")
+    return (f"float32 SGD(1.0) train step: loss relative difference "
+            f"{loss_rel:.3g} (limit {STEP_LOSS_RTOL:g}); largest delta "
+            f"difference against the CPU {cpu_worst:.3g} of its tensor's "
+            f"scale ({cpu_name}; limit {STEP_ATOL:g}; pool windows routed "
+            f"differently {cpu_routes}); against float64 on the card "
+            f"{worst:.3g} ({name}{share}; pool windows routed differently "
+            f"{routes}), {clean:.3g} after the rerouted pools ({clean_name};"
+            f" limit {ARITHMETIC_ATOL:g}); TF32 control against float64 "
+            f"{tf_worst:.3g} ({tf_name}), {tf_clean:.3g} after its rerouted "
+            f"pools ({tf_clean_name}; pool windows routed differently "
+            f"{tf_routes}): fails, as it must")
 
 
 def main():
@@ -1107,6 +1430,9 @@ def main():
     timed("profile", lambda: (serving_profile(bayes, serve_frames, "Bayes"),
                               serving_profile(dirich, serve_frames,
                                               "Dirichlet")))
+    # ---- the training path: kernel A's launch count from 0 (in training)
+    timed("training", training, smi_line)
+    # ---- end of the training path
     timed("reference checks", reference_checks, experts, bayes, dirich)
     for record in records:
         record["launches"] = launches[record["name"]]

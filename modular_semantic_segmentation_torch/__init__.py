@@ -5,18 +5,19 @@ Per-modality expert CNNs (SimpleFCN/VGG16) whose per-pixel outputs are fused
 by statistical fusion layers (Bayes over confusion-matrix likelihoods,
 class-conditional Dirichlet densities, averaging, MC-dropout variance
 weighting, uncertainty-modulated Dirichlet), and BayesianFCN's MC-dropout
-uncertainty. Module names follow the JAX
-package so each file has an obvious counterpart there; the JAX package
-stays the reference this port is tested against.
+uncertainty, and the training of the expert networks. Module names follow
+the JAX package so each file has an obvious counterpart there; the JAX
+package stays the reference this port is tested against.
 
 Layout:
-    ops/        layers, fusion math, metrics; ops/cuda/ wraps the
-                hand-written Hopper kernels in csrc/
-    models/     Estimator eval runtime, SimpleFCN, the fusion family
+    ops/        layers, fusion math, metrics, losses, optimizers;
+                ops/cuda/ wraps the hand-written Hopper kernels in csrc/
+    models/     Estimator runtime (train step, fit, eval, checkpoints),
+                SimpleFCN, the fusion family
                 (Bayes, Dirichlet, Average, Variance, Uncertainty-Dirichlet),
                 UncertaintyModel and BayesianFCN; int8 post-training
                 quantization (quantize, packed_experts)
-    utils/      host-side batch plumbing
+    utils/      host-side batch plumbing, event-file writer, profiling
     serving.py  frame-at-a-time inference server
 
 Public tensors are NHWC, as in the JAX package. Entry points take a

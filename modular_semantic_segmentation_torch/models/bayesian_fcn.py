@@ -1,4 +1,4 @@
-"""BayesianFCN: MC-dropout uncertainty FCN, eval (counterpart of the JAX
+"""BayesianFCN: MC-dropout uncertainty FCN (counterpart of the JAX
 package's ``models/bayesian_fcn.py``; reference xview/models/bayesian_fcn.py,
 after Kendall's Bayesian SegNet, arXiv 1511.02680).
 
@@ -8,14 +8,16 @@ variance (reference bayesian_fcn.py:9-57). Every dropout site lies after
 pool3, so the N samples share one head pass and run the stochastic tail
 and decoder as one batch of N*B elements, which computes sample for
 sample what an N-loop would. Temperature scaling via config
-``temperature_scaling``. Training is not ported yet.
+``temperature_scaling``. Training runs one stochastic pass through every
+dropout site, drawing from the model's generator.
 """
 
 import torch
 
 from modular_semantic_segmentation_torch.ops import layers as ll
+from modular_semantic_segmentation_torch.ops.losses import cross_entropy
 from modular_semantic_segmentation_torch.models.simple_fcn import (
-    decoder, encoder_head, encoder_tail, fcn_variable_specs)
+    decoder, encoder_head, encoder_tail, fcn, fcn_variable_specs)
 from modular_semantic_segmentation_torch.models.uncertainty_model import \
     UncertaintyModel
 
@@ -66,9 +68,15 @@ class BayesianFCN(UncertaintyModel):
             channel_factor=self.config.get("channel_factor", 1.0))
 
     def _train_outputs(self, ctx, batch):
-        raise NotImplementedError(
-            "BayesianFCN training is not ported yet (ROADMAP.md section 1, "
-            "'The training path')")
+        cfg = self.config
+        layers = fcn(ctx, batch[self.modality], self.prefix,
+                     cfg["num_units"], cfg["num_classes"],
+                     batchnorm=cfg["batch_normalization"],
+                     channel_factor=cfg.get("channel_factor", 1.0),
+                     dropout_rate=cfg["dropout_rate"],
+                     dropout_layers=cfg["dropout_layers"])
+        log_prob = ll.log_softmax(layers["score"])
+        return {"loss": cross_entropy(log_prob, batch["labels"])}
 
     def _test_outputs(self, ctx, batch):
         cfg = self.config

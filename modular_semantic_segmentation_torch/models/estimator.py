@@ -1,35 +1,54 @@
-"""Estimator: the eval runtime shared by every model of the port.
+"""Estimator: the runtime shared by every model of the port.
 
-Counterpart of the JAX package's ``models/estimator.py``, eval subset:
-config handling and ``compute_dtype``, ``_preprocess`` (``input_scaling``
-and integer promotion), the eval step, ``predict``, ``score`` (partial
-batches padded with label -1), int8 post-training-quantized serving
-(``quantize_for_serving`` / ``dequantize_serving``) and npz
-``import_weights`` / ``export_weights``. Training is not ported yet.
+Counterpart of the JAX package's ``models/estimator.py``: config handling
+and ``compute_dtype``, ``_preprocess`` (``input_scaling`` and integer
+promotion), the train step and ``fit``, the eval step, ``predict``,
+``score`` (partial batches padded with label -1), int8 post-training-
+quantized serving (``quantize_for_serving`` / ``dequantize_serving``),
+npz ``import_weights`` / ``export_weights`` and the ``checkpoint.pkl``
+files of ``save_checkpoint`` / ``load_weights``.
 
 Variables are a flat ``{tf_name: float32 tensor}`` store on ``device``,
 made from the subclass's variable specs and a numpy seed (config ``seed``,
-default 0). The same seed starts the model's ``torch.Generator`` on
-``device``, the random stream of its stochastic layers (MC dropout); it
-advances with every draw, as the JAX package's key is split per step.
-PyTorch runs eagerly, so there is no jitted step: the eval step is a
-plain call under ``torch.inference_mode``.
+default 0); the specs also give ``trainable``, the ``{name: bool}`` map of
+what the optimizer updates. The same seed starts the model's
+``torch.Generator`` on ``device``, the random stream of its stochastic
+layers (MC dropout); it advances with every draw, as the JAX package's key
+is split per step. PyTorch runs eagerly, so there is no jitted step: the
+eval step is a plain call under ``torch.inference_mode``, and the train
+step is a pure function of (variables, optimizer state, batch) that
+returns new tensors, as JAX's: no variable is changed in place, so what a
+layer keeps in ``_kernel_cache`` beside a kernel (its int8 form) is never
+taken for a trained kernel.
 
 Subclass contract:
-    _variable_specs() -> [(name, shape, initializer), ...]
+    _variable_specs() -> [(name, shape, initializer, trainable), ...]
+    _train_outputs(ctx, batch) -> dict with 'loss' (labels arrive
+        one-hot, float32)
     _test_outputs(ctx, batch) -> dict with 'prediction' (+ 'prob', ...)
+An eval-only model (``custom_training=True``) needs no _train_outputs.
 """
+
+import json
+import pickle
+import time
+from os import path
 
 import numpy as np
 import torch
 
 from modular_semantic_segmentation_torch.models import params as params_lib
 from modular_semantic_segmentation_torch.ops import metrics as metrics_lib
-from modular_semantic_segmentation_torch.ops.init import build_variables
+from modular_semantic_segmentation_torch.ops import optimizers
+from modular_semantic_segmentation_torch.ops.init import (
+    build_variables, trainable_map)
 from modular_semantic_segmentation_torch.ops.layers import configure_float32
+from modular_semantic_segmentation_torch.ops.losses import one_hot
 from modular_semantic_segmentation_torch.ops.variables import (
-    Ctx, resolve_device, resolve_dtype)
-from modular_semantic_segmentation_torch.utils.data_io import iterate_batches
+    Ctx, resolve_device, resolve_dtype, split_trainable)
+from modular_semantic_segmentation_torch.utils.data_io import (
+    iterate_batches, training_batches)
+from modular_semantic_segmentation_torch.utils.tfevents import EventWriter
 
 
 def to_numpy(value):
@@ -43,6 +62,40 @@ def to_numpy(value):
     return value.cpu().numpy()
 
 
+def _remat(loss_fn, generator):
+    """``loss_fn(tvars)`` under ``torch.utils.checkpoint``: its activations
+    are recomputed in the backward pass instead of kept (the JAX package's
+    ``jax.checkpoint``).
+
+    The checkpoint restores the global RNG states for the recompute, not
+    a ``torch.Generator``: the recompute would draw new dropout masks from
+    the model's generator. So the generator's state at the start of the
+    forward is set again for the recompute, and its state after the
+    forward is put back when the recompute ends. The recompute's own
+    return value (its recorded BN updates among it) is discarded by the
+    checkpoint; the forward's stands.
+    """
+    from torch.utils.checkpoint import checkpoint
+    start = []
+
+    def replayed(names, *tensors):
+        tvars = dict(zip(names, tensors))
+        if not start:
+            start.append(generator.get_state())
+            return loss_fn(tvars)
+        after = generator.get_state()
+        generator.set_state(start[0])
+        try:
+            return loss_fn(tvars)
+        finally:
+            generator.set_state(after)
+
+    def checkpointed(tvars):
+        return checkpoint(replayed, list(tvars), *tvars.values(),
+                          use_reentrant=False)
+    return checkpointed
+
+
 class Estimator:
     """Base class for all models. See module docstring.
 
@@ -52,6 +105,12 @@ class Estimator:
         compute_dtype: 'float32' | 'bfloat16', the dtype inside the convs.
         device: where variables live and the model runs; 'cuda' (the
             default) raises when there is no card.
+        custom_training: True for eval-only models (the fusion models):
+            no optimizer, and ``fit`` raises UserWarning.
+        config: the JAX package's keys, among them ``seed``; for
+            training ``trainer`` ('adam' | 'adagrad' | 'rmsprop'),
+            ``learning_rate`` (0.0001), ``microbatch_size``, ``remat``,
+            ``checkpoint_interval`` and ``abort_at_iou``.
     """
 
     #: whether ``_test_outputs`` runs FCN expert stems through
@@ -64,10 +123,11 @@ class Estimator:
     ptq_min_pixels = 2048
 
     def __init__(self, data_description, name=None, output_dir=None,
-                 batchsize=1, compute_dtype="float32", device="cuda",
-                 **config):
+                 custom_training=False, batchsize=1, compute_dtype="float32",
+                 device="cuda", **config):
         self.name = name if name is not None else type(self).__name__
         self.output_dir = output_dir
+        self.custom_training = custom_training
         self.config = config
         self.config["batchsize"] = batchsize
         self.config["num_classes"] = data_description[2]
@@ -80,13 +140,35 @@ class Estimator:
         self.act_scales = None
         configure_float32()
         seed = int(config.get("seed", 0))
-        self.variables = build_variables(self._variable_specs(), seed=seed,
+        specs = self._variable_specs()
+        self.variables = build_variables(specs, seed=seed,
                                          device=self.device)
+        self.trainable = trainable_map(specs)
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(seed)
+        if not self.custom_training:
+            self._optimizer = optimizers.make_optimizer(
+                self.config.get("trainer", "adam"),
+                self.config.get("learning_rate", 0.0001))
+            train_vars, _ = split_trainable(self.variables, self.trainable)
+            self.opt_state = self._optimizer.init(train_vars)
+        else:
+            self._optimizer = None
+            self.opt_state = None
 
     # ------------------------------------------------------------- contracts
     def _variable_specs(self):
+        raise NotImplementedError
+
+    def _train_outputs(self, ctx, batch):
+        """Subclass contract: a dict with key 'loss'.
+
+        With ``microbatch_size`` the loss must be the valid-pixel MEAN
+        (normalized by the one-hot label count, as
+        ``ops/losses.cross_entropy``): the microbatch accumulation weights
+        each microbatch's gradient by its non-void pixel count, which
+        gives the full-batch gradient only for that form of loss.
+        """
         raise NotImplementedError
 
     def _test_outputs(self, ctx, batch):
@@ -133,6 +215,85 @@ class Estimator:
                 out[modality] = value.float()
         return out
 
+    def _microbatch_grads(self, variables, batch):
+        """Loss, non-void pixel weight, BN updates and gradients of the
+        trainable variables for one (micro)batch on the device: the body
+        of the plain and the microbatched train step."""
+        if self.config.get("device_augmentation"):
+            raise NotImplementedError(
+                "device_augmentation is not ported yet (ROADMAP.md section "
+                "1, item 11)")
+        train_batch = self._preprocess(batch)
+        train_batch["labels"] = one_hot(batch["labels"],
+                                        self.config["num_classes"])
+        train_vars, frozen_vars = split_trainable(variables, self.trainable)
+        leaves = {k: v.detach().requires_grad_()
+                  for k, v in train_vars.items()}
+
+        def loss_fn(tvars):
+            ctx = Ctx({**frozen_vars, **tvars},
+                      compute_dtype=self.compute_dtype,
+                      kernel_cache=self._kernel_cache,
+                      generator=self._generator, train=True)
+            out = self._train_outputs(ctx, train_batch)
+            return out["loss"], ctx.updates
+
+        if self.config.get("remat"):
+            loss_fn = _remat(loss_fn, self._generator)
+        with torch.enable_grad():
+            loss, bn_updates = loss_fn(leaves)
+            grads = (torch.autograd.grad(loss, list(leaves.values()),
+                                         allow_unused=True,
+                                         materialize_grads=True)
+                     if leaves else ())
+        weight = torch.sum(train_batch["labels"])
+        return (loss.detach(), weight, bn_updates,
+                dict(zip(leaves, grads)))
+
+    def _train_step(self, variables, opt_state, batch):
+        """One optimizer step: (new variables, new optimizer state, loss).
+
+        Pure, as the JAX package's: the inputs are not changed, and the
+        trained variables and BN statistics are new tensors. With config
+        ``microbatch_size`` smaller than the batch, the batch is split
+        into strided microbatches (``i::steps``) whose gradients are
+        accumulated weighted by their non-void pixel counts (the
+        full-batch gradient of the valid-pixel mean loss), the loss
+        likewise; batch norm then normalizes per microbatch and the moving
+        statistics take the mean of the microbatches' updates.
+        """
+        batch = self._batch_to_device(batch)
+        micro = int(self.config.get("microbatch_size") or 0)
+        batchsize = int(next(iter(batch.values())).shape[0])
+        if micro and batchsize % micro:
+            raise ValueError(f"microbatch_size={micro} must divide the "
+                             f"batch size ({batchsize})")
+        if micro and batchsize > micro:
+            num, den, loss_sum, bn_acc = None, 0.0, 0.0, {}
+            steps = batchsize // micro
+            for i in range(steps):
+                part = {k: v[i::steps] for k, v in batch.items()}
+                loss_i, w, bn_i, g_i = self._microbatch_grads(variables,
+                                                              part)
+                weighted = {k: g * w for k, g in g_i.items()}
+                num = weighted if num is None else {
+                    k: num[k] + weighted[k] for k in num}
+                den = den + w
+                loss_sum = loss_sum + loss_i * w
+                for k, v in bn_i.items():
+                    bn_acc.setdefault(k, []).append(v)
+            scale = 1.0 / torch.clamp(den, min=1e-20)
+            grads = {k: a * scale for k, a in num.items()}
+            loss = loss_sum * scale
+            bn_updates = {k: sum(vs) / len(vs) for k, vs in bn_acc.items()}
+        else:
+            loss, _, bn_updates, grads = self._microbatch_grads(variables,
+                                                                batch)
+        train_vars, _ = split_trainable(variables, self.trainable)
+        updates, opt_state = self._optimizer.update(grads, opt_state)
+        train_vars = optimizers.apply_updates(train_vars, updates)
+        return {**variables, **train_vars, **bn_updates}, opt_state, loss
+
     def _forward(self, batch):
         """Test outputs for a batch already on the device, in the current
         serving mode (``act_scales``)."""
@@ -157,6 +318,86 @@ class Estimator:
                     out["prediction"], batch["labels"],
                     self.config["num_classes"])
         return out
+
+    # ------------------------------------------------------------------- fit
+    def fit(self, data, iterations, output=True, validation_dataset=None,
+            validation_interval=100, additional_eval_datasets=None):
+        """Train for ``iterations`` steps.
+
+        Args:
+            data: a data source (``batches(...)``), a dict of stacked
+                arrays or an iterator of batch dicts; shuffled in an order
+                fixed by config ``seed``.
+            validation_dataset: scored every ``validation_interval``
+                steps (from the first); a line is printed when ``output``,
+                and with ``output_dir`` set a record goes to
+                ``summaries.jsonl`` and to an event file there.
+            additional_eval_datasets: {name: data}, whose mean IoU each
+                record also holds.
+
+        With ``output_dir`` and config ``checkpoint_interval``,
+        ``checkpoint.pkl`` is written every that many steps; config
+        ``abort_at_iou`` ends the fit once the validation mean IoU
+        exceeds it.
+        """
+        if self.custom_training:
+            raise UserWarning(
+                f"ERROR: Model {self.name} does not support training")
+        additional_eval_datasets = additional_eval_datasets or {}
+        batches = training_batches(data, self.config["batchsize"],
+                                   seed=int(self.config.get("seed", 0)))
+        summary_file = None
+        event_writer = None
+        if self.output_dir is not None:
+            summary_file = open(path.join(self.output_dir,
+                                          "summaries.jsonl"), "a")
+            event_writer = EventWriter(self.output_dir)
+        checkpoint_interval = self.config.get("checkpoint_interval")
+
+        print("INFO: Start training")
+        start = time.time()
+        try:
+            for i in range(iterations):
+                batch = next(batches)
+                self.variables, self.opt_state, loss = self._train_step(
+                    self.variables, self.opt_state, batch)
+                self.global_step += 1
+                if (checkpoint_interval and self.output_dir is not None
+                        and self.global_step % checkpoint_interval == 0):
+                    self.save_checkpoint(
+                        path.join(self.output_dir, "checkpoint.pkl"))
+                if (i % validation_interval == 0
+                        and validation_dataset is not None):
+                    score, _ = self.score(validation_dataset)
+                    if output:
+                        print("{:4d}: loss {:.4f}, accuracy {:.2f}, IoU "
+                              "{:.2f}".format(i, float(loss),
+                                             score["total_accuracy"],
+                                             score["mean_IoU"]))
+                    record = {"step": self.global_step, "loss": float(loss),
+                              "accuracy": float(score["total_accuracy"]),
+                              "IoU": float(score["mean_IoU"]),
+                              "wall_time": time.time() - start}
+                    for key, extra_data in additional_eval_datasets.items():
+                        record[key] = float(
+                            self.score(extra_data)[0]["mean_IoU"])
+                    if summary_file is not None:
+                        summary_file.write(json.dumps(record) + "\n")
+                        summary_file.flush()
+                    if event_writer is not None:
+                        event_writer.add_scalars(
+                            self.global_step,
+                            {k: v for k, v in record.items()
+                             if k not in ("step", "wall_time")})
+                    if ("abort_at_iou" in self.config and score["mean_IoU"]
+                            > self.config["abort_at_iou"]):
+                        break
+        finally:
+            if summary_file is not None:
+                summary_file.close()
+            if event_writer is not None:
+                event_writer.close()
+        print("INFO: Training finished.")
 
     # --------------------------------------------------------------- predict
     def predict(self, data, output_attr=None):
@@ -267,3 +508,38 @@ class Estimator:
             self.variables, filepath, translate_prefix=translate_prefix,
             chill_mode=chill_mode, warnings=warnings)
         return report
+
+    def load_weights(self, filepath):
+        """Restore a checkpoint: an ``.npz`` goes to ``import_weights``;
+        a ``checkpoint.pkl`` (this package's or the JAX package's) sets
+        the variables, the step and, where both have one, the optimizer
+        state."""
+        if filepath.endswith(".npz"):
+            self.import_weights(filepath, warnings=False)
+            return
+        with open(filepath, "rb") as f:
+            state = pickle.load(f)
+        self.variables = {
+            k: torch.from_numpy(np.array(v, np.float32)).to(self.device)
+            for k, v in state["variables"].items()}
+        self.global_step = int(state.get("global_step", 0))
+        if state.get("opt_state") is not None and self.opt_state is not None:
+            names = [k for k, train in self.trainable.items() if train]
+            self.opt_state = optimizers.state_from_leaves(
+                self._optimizer, state["opt_state"], names, self.device)
+
+    def save_checkpoint(self, filepath):
+        """Write a checkpoint with the optimizer state, in the JAX
+        package's layout: a pickle of ``{"variables": {name: float32
+        array}, "global_step": int, "opt_state": [arrays in optax's leaf
+        order] or None}``."""
+        state = {
+            "variables": {k: to_numpy(v) for k, v in self.variables.items()},
+            "global_step": self.global_step,
+            "opt_state": None if self.opt_state is None else [
+                to_numpy(x) for x in optimizers.state_leaves(
+                    self._optimizer, self.opt_state)],
+        }
+        with open(filepath, "wb") as f:
+            pickle.dump(state, f)
+        return filepath

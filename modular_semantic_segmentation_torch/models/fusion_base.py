@@ -56,7 +56,9 @@ def expert_pipelines(ctx, batch, modalities, config):
 
 
 class FusionModel(Estimator):
-    """Mixture-of-experts base.
+    """Mixture-of-experts base. Eval only (``custom_training``): ``fit``
+    raises UserWarning, as in the JAX package, unless a subclass fits its
+    own way (``DirichletFusion.fit``).
 
     Config:
         prefixes: dict {modality: variable-name prefix} for the experts.
@@ -80,7 +82,7 @@ class FusionModel(Estimator):
         self.modalities = list(config["prefixes"].keys())
         Estimator.__init__(self, data_description=config.pop(
             "data_description"), name=name, output_dir=output_dir,
-            **config)
+            custom_training=True, **config)
 
     def _variable_specs(self):
         if self.config.get("expert_model") != "fcn":

@@ -1,6 +1,6 @@
 """SimpleFCN: the VGG16-based fully-convolutional segmentation expert.
 
-Counterpart of the JAX package's ``models/simple_fcn.py`` (eval): VGG16 conv
+Counterpart of the JAX package's ``models/simple_fcn.py``: VGG16 conv
 stack, 1x1 score convs on conv4_3 and conv5_3, frozen 4x4/stride-2
 bilinear deconv on score_conv5, added into 'fused'; decoder = frozen
 16x16/stride-8 bilinear deconv + 1x1 class score conv. The reference's
@@ -11,13 +11,15 @@ one of them lies after pool3, so :func:`encoder_head` is deterministic.
 ``encoder``/``decoder``/``fcn`` are plain functions returning layer dicts,
 so fusion models build experts without expert model objects.
 ``fcn_variable_specs`` lists the variables those functions read, under the
-same TF names, so a store can be made up front from a seed.
+same TF names and with the JAX package's trainable flags, so a store can
+be made up front from a seed.
 """
 
 import torch
 
 from modular_semantic_segmentation_torch.ops import init as initializers
 from modular_semantic_segmentation_torch.ops import layers as ll
+from modular_semantic_segmentation_torch.ops.losses import cross_entropy
 from modular_semantic_segmentation_torch.models.estimator import Estimator
 
 
@@ -163,22 +165,31 @@ def fcn(ctx, inputs, prefix, num_units, num_classes, batchnorm=True,
     return layers
 
 
-def _layer_specs(scope, kernel_shape, out_ch, batchnorm, bias=True,
-                 kernel_init=initializers.glorot_uniform):
-    specs = [(f"{scope}/kernel", kernel_shape, kernel_init)]
+def _layer_specs(scope, kernel_shape, out_ch, batchnorm, trainable=True,
+                 bias=True, kernel_init=initializers.glorot_uniform):
+    """Specs of one conv or deconv: kernel and bias train when
+    ``trainable``; BN's gamma and beta always train and its moving
+    statistics never do, as the JAX package's layers create them."""
+    specs = [(f"{scope}/kernel", kernel_shape, kernel_init, trainable)]
     if bias:
-        specs.append((f"{scope}/bias", (out_ch,), initializers.zeros))
+        specs.append((f"{scope}/bias", (out_ch,), initializers.zeros,
+                      trainable))
     if batchnorm:
-        specs += [(f"{scope}/gamma", (out_ch,), initializers.ones),
-                  (f"{scope}/beta", (out_ch,), initializers.zeros),
-                  (f"{scope}/moving_mean", (out_ch,), initializers.zeros),
-                  (f"{scope}/moving_variance", (out_ch,), initializers.ones)]
+        specs += [
+            (f"{scope}/gamma", (out_ch,), initializers.ones, True),
+            (f"{scope}/beta", (out_ch,), initializers.zeros, True),
+            (f"{scope}/moving_mean", (out_ch,), initializers.zeros, False),
+            (f"{scope}/moving_variance", (out_ch,), initializers.ones,
+             False)]
     return specs
 
 
 def fcn_variable_specs(prefix, in_channels, num_units, num_classes,
-                       batchnorm=True, channel_factor=1.0):
-    """[(name, shape, initializer)] of every variable :func:`fcn` reads."""
+                       batchnorm=True, channel_factor=1.0, trainable=True):
+    """[(name, shape, initializer, trainable)] of every variable
+    :func:`fcn` reads. ``trainable`` (config ``train_encoder``) applies
+    to every conv's kernel and bias; the bilinear deconv kernels are
+    frozen."""
     c = _width(channel_factor)
     convs = [("conv1_1", in_channels, c(64)), ("conv1_2", c(64), c(64)),
              ("conv2_1", c(64), c(128)), ("conv2_2", c(128), c(128)),
@@ -190,18 +201,18 @@ def fcn_variable_specs(prefix, in_channels, num_units, num_classes,
     specs = []
     for name, cin, cout in convs:
         specs += _layer_specs(f"{prefix}/{name}", (3, 3, cin, cout), cout,
-                              batchnorm)
+                              batchnorm, trainable)
     for name in ("score_conv4", "score_conv5"):
         specs += _layer_specs(f"{prefix}/{name}", (1, 1, c(512), num_units),
-                              num_units, batchnorm)
+                              num_units, batchnorm, trainable)
     for name, k in (("upscore_conv5", 4), ("upscore", 16)):
         specs += _layer_specs(f"{prefix}/{name}",
                               (k, k, num_units, num_units), num_units,
-                              batchnorm, bias=False,
+                              batchnorm, trainable=False, bias=False,
                               kernel_init=initializers.
                               bilinear_filter_initializer)
     specs += _layer_specs(f"{prefix}/score", (1, 1, num_units, num_classes),
-                          num_classes, batchnorm)
+                          num_classes, batchnorm, trainable)
     return specs
 
 
@@ -214,6 +225,8 @@ class SimpleFCN(Estimator):
         modality: key of the input modality in data batches.
         num_units: feature units in the FCN.
         batch_normalization, channel_factor: see :func:`fcn`.
+        train_encoder: whether the convs' kernels and biases train
+            (default True); BN's gamma and beta train either way.
     """
 
     # int8 serving: no spatial floor for the VGG16 stack, as in the JAX
@@ -224,7 +237,8 @@ class SimpleFCN(Estimator):
                  **config):
         self.prefix = prefix
         self.modality = modality
-        standard_config = {"batch_normalization": True}
+        standard_config = {"train_encoder": True,
+                           "batch_normalization": True}
         standard_config.update(config)
         Estimator.__init__(self, data_description, output_dir=output_dir,
                            **standard_config)
@@ -234,13 +248,19 @@ class SimpleFCN(Estimator):
             self.prefix, self._input_channels(self.modality),
             self.config["num_units"], self.config["num_classes"],
             batchnorm=self.config["batch_normalization"],
-            channel_factor=self.config.get("channel_factor", 1.0))
+            channel_factor=self.config.get("channel_factor", 1.0),
+            trainable=self.config["train_encoder"])
 
     def _fcn(self, ctx, x):
         return fcn(ctx, x, self.prefix, self.config["num_units"],
                    self.config["num_classes"],
                    batchnorm=self.config["batch_normalization"],
                    channel_factor=self.config.get("channel_factor", 1.0))
+
+    def _train_outputs(self, ctx, batch):
+        layers = self._fcn(ctx, batch[self.modality])
+        log_prob = ll.log_softmax(layers["score"])
+        return {"loss": cross_entropy(log_prob, batch["labels"])}
 
     def _test_outputs(self, ctx, batch):
         layers = self._fcn(ctx, batch[self.modality])

@@ -62,7 +62,8 @@ def bilinear_filter_initializer(rng, shape):
 
 
 def build_variables(specs, seed=0, device="cpu"):
-    """Make a variable store from ``[(name, shape, initializer), ...]``.
+    """Make a variable store from ``[(name, shape, initializer[,
+    trainable]), ...]``.
 
     Initializers draw from one ``np.random.RandomState(seed)`` in the order
     of ``specs``, so a seed and a spec list fix every weight. Returns a
@@ -70,4 +71,11 @@ def build_variables(specs, seed=0, device="cpu"):
     """
     rng = np.random.RandomState(seed)
     return {name: torch.from_numpy(init(rng, tuple(shape))).to(device)
-            for name, shape, init in specs}
+            for name, shape, init, *_ in specs}
+
+
+def trainable_map(specs):
+    """``{name: bool}`` from ``[(name, shape, initializer, trainable),
+    ...]``: which variables the optimizer updates (the JAX package's
+    ``net.trainable``)."""
+    return {name: bool(trainable) for name, _, _, trainable in specs}

@@ -1,11 +1,13 @@
-"""Eval-mode layers in PyTorch, with the JAX package's TF1 semantics.
+"""Layers in PyTorch, with the JAX package's TF1 semantics.
 
-Counterpart of the JAX package's ``ops/layers.py`` (eval):
+Counterpart of the JAX package's ``ops/layers.py``:
     * conv2d: TF SAME padding (asymmetric at stride 2: the extra pad goes
       to the trailing side), dilation, bias, and conv -> batch-norm ->
       activation ordering; the PTQ calibration record of its input and the
       int8 serving path (``ops/int8_conv.py``), both keyed by its scope;
-    * batch_norm: eval mode from the moving statistics, eps 1e-3, in f32;
+    * batch_norm: eps 1e-3, in f32; eval mode from the moving statistics,
+      train mode (``ctx.train``) from the batch's, recording the moving
+      statistics' momentum-0.99 update in ``ctx.updates``;
     * deconv2d: transposed conv with a frozen kernel stored in the TF
       conv2d_transpose layout [H, W, out, in]; channel-diagonal kernels go
       through ``ops/fast_upsample.diagonal_upsample``, others through a
@@ -19,7 +21,9 @@ Tensors are NHWC at every function here. A convolution sees the
 cuDNN and the CPU kernels take without a copy. Kernels are stored HWIO
 (the npz contract) and permuted to PyTorch's [out, in, kh, kw] per call.
 The plain large convolutions stay ``torch.nn.functional`` calls, as the
-JAX package leaves them to XLA.
+JAX package leaves them to XLA. Every float path is differentiable, and
+autograd gives its gradients: the JAX package's custom VJPs of these
+layers are speed formulations of the same gradients on the TPU.
 """
 
 import torch
@@ -29,7 +33,8 @@ from modular_semantic_segmentation_torch.ops import int8_conv
 from modular_semantic_segmentation_torch.ops.fast_upsample import (
     diagonal_upsample, same_transpose_crop)
 
-# TF tf.layers.batch_normalization default.
+# TF tf.layers.batch_normalization defaults.
+BN_MOMENTUM = 0.99
 BN_EPSILON = 1e-3
 
 
@@ -66,18 +71,34 @@ def _check_shape(value, shape, name):
 
 
 def batch_norm(ctx, x, name):
-    """Eval-mode TF1 batch normalization over the channel (last) axis.
+    """TF1 batch normalization over the channel (last) axis.
 
     Variables ``<name>/{gamma,beta,moving_mean,moving_variance}``. The
-    affine runs in float32 and the result is cast back to ``x.dtype``.
+    statistics and the affine run in float32 and the result is cast back
+    to ``x.dtype``. In train mode the batch mean and the biased variance
+    over every other axis (two passes, as ``tf.nn.moments``; the mean
+    inside the variance carries no gradient, as in the JAX package)
+    normalize, and ``0.99 * moving + 0.01 * batch`` is recorded for each
+    moving statistic. ``torch.nn.functional.batch_norm`` would record the
+    unbiased variance instead.
     """
     with ctx.scope(name):
         gamma = ctx.get("gamma")
         beta = ctx.get("beta")
         mean = ctx.get("moving_mean")
         var = ctx.get("moving_variance")
+        x32 = x.float()
+        if ctx.train:
+            axes = tuple(range(x.ndim - 1))
+            moving_mean, moving_var = mean, var
+            mean = torch.mean(x32, dim=axes)
+            var = torch.mean(torch.square(x32 - mean.detach()), dim=axes)
+            ctx.record_update("moving_mean", BN_MOMENTUM * moving_mean
+                              + (1.0 - BN_MOMENTUM) * mean)
+            ctx.record_update("moving_variance", BN_MOMENTUM * moving_var
+                              + (1.0 - BN_MOMENTUM) * var)
     inv = torch.rsqrt(var + BN_EPSILON) * gamma
-    out = x.float() * inv + (beta - mean * inv)
+    out = x32 * inv + (beta - mean * inv)
     return out.to(x.dtype)
 
 
@@ -153,7 +174,8 @@ def conv2d(ctx, x, filters, kernel_size, name, strides=1, dilation_rate=1,
     runs in int8, as the JAX package's int8 branch: per-tensor input
     scale, per-output-channel kernel scale, int32 sums, dequantized to
     float32 by ``ascale * kscale`` before the bias. A conv whose key is
-    not there stays on the float path.
+    not there stays on the float path, and so does every conv in train
+    mode (``ctx.train``), as in the JAX package.
     """
     kh, kw = _pair(kernel_size)
     sh, sw = _pair(strides)
@@ -169,7 +191,8 @@ def conv2d(ctx, x, filters, kernel_size, name, strides=1, dilation_rate=1,
             _calibrate(ctx, x, quant_key)
         ph = _same_pads(h, kh, sh, dh)
         pw = _same_pads(w, kw, sw, dw)
-        if (not ctx.calibrate and ctx.act_scales is not None
+        if (not ctx.train and not ctx.calibrate
+                and ctx.act_scales is not None
                 and quant_key in ctx.act_scales):
             kq_t, ascale, dequant = _int8_operands(
                 ctx, kernel, ctx.act_scales[quant_key])
@@ -178,21 +201,21 @@ def conv2d(ctx, x, filters, kernel_size, name, strides=1, dilation_rate=1,
                 (dh, dw), (ph, pw))
             # int32 * float32 [out] promotes to float32 in one pass
             out = torch.mul(acc, dequant).add_(ctx.get("bias"))
-            return _epilogue(ctx, out, name, activation,
-                             batch_normalization)
-        xd = x.to(dtype)
-        if ph[0] == ph[1] and pw[0] == pw[1]:
-            pad = (ph[0], pw[0])
         else:
-            # asymmetric (strided) SAME: pad the NHWC tensor explicitly;
-            # PyTorch's padding='same' refuses stride > 1
-            xd = F.pad(xd, (0, 0, pw[0], pw[1], ph[0], ph[1]))
-            pad = (0, 0)
-        out = F.conv2d(xd.permute(0, 3, 1, 2),
-                       kernel.permute(3, 2, 0, 1).to(dtype),
-                       stride=(sh, sw), padding=pad, dilation=(dh, dw))
-        # float32 promotion, as jnp's bf16 + f32 in the JAX package
-        out = out.permute(0, 2, 3, 1) + ctx.get("bias")
+            xd = x.to(dtype)
+            if ph[0] == ph[1] and pw[0] == pw[1]:
+                pad = (ph[0], pw[0])
+            else:
+                # asymmetric (strided) SAME: pad the NHWC tensor
+                # explicitly; PyTorch's padding='same' refuses stride > 1
+                xd = F.pad(xd, (0, 0, pw[0], pw[1], ph[0], ph[1]))
+                pad = (0, 0)
+            out = F.conv2d(xd.permute(0, 3, 1, 2),
+                           kernel.permute(3, 2, 0, 1).to(dtype),
+                           stride=(sh, sw), padding=pad, dilation=(dh, dw))
+            # float32 promotion, as jnp's bf16 + f32 in the JAX package
+            out = out.permute(0, 2, 3, 1) + ctx.get("bias")
+    # outside the conv's scope: batch_norm enters <name> itself
     return _epilogue(ctx, out, name, activation, batch_normalization)
 
 

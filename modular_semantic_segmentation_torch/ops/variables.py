@@ -1,11 +1,17 @@
-"""Flat, name-addressed variable store for the eval-mode networks.
+"""Flat, name-addressed variable store for the networks.
 
 The JAX package keeps every variable in one flat ``{tf_name: array}`` dict
 and reads it through a scoped context (``ops/variables.Ctx``), so npz weight
 files are keyed by TF names like ``rgb/conv1_1/kernel``. The port keeps the
-same contract with a ``{tf_name: torch.Tensor}`` dict. It is eval only:
-variables are made up front from a list of specs (``ops/init.py``), never
-by tracing the network.
+same contract with a ``{tf_name: torch.Tensor}`` dict. Variables are made
+up front from a list of specs (``ops/init.py``), never by tracing the
+network; a spec also says whether its variable trains, which gives the
+``{name: bool}`` map that :func:`split_trainable` partitions by.
+
+In training mode (``Ctx(train=True)``) batch norm normalizes with batch
+statistics and records its moving-statistic updates in ``ctx.updates``,
+which the train step merges into the new variables, as in the JAX
+package: no layer changes a variable in place.
 """
 
 from contextlib import contextmanager
@@ -59,12 +65,17 @@ class Ctx:
             ``<scope>/input_pixels``.
         calibrate_percentile: below 100, calibration records that
             percentile of |input| instead of its max.
+        train: training mode: batch norm uses batch statistics and
+            records moving-statistic updates in ``self.updates``; convs
+            never take the int8 path.
     """
 
     def __init__(self, variables, compute_dtype=torch.float32,
                  kernel_cache=None, generator=None, act_scales=None,
-                 calibrate=False, calibrate_percentile=100.0):
+                 calibrate=False, calibrate_percentile=100.0, train=False):
         self.variables = variables
+        self.train = train
+        self.updates = {}
         self.compute_dtype = compute_dtype
         self.kernel_cache = {} if kernel_cache is None else kernel_cache
         self._generator = generator
@@ -118,3 +129,18 @@ class Ctx:
         except KeyError:
             raise KeyError(f"Variable '{full}' not found (available: "
                            f"{len(self.variables)} vars)") from None
+
+    def record_update(self, name, value):
+        """Record the new value of the variable ``<scope>/name`` (batch
+        norm's moving statistics), detached from autograd."""
+        self.updates[self.full_name(name)] = value.detach()
+
+
+def split_trainable(variables, trainable):
+    """Partition a flat variable dict into (trainable, frozen) dicts by
+    the ``{name: bool}`` map; a name missing from the map is frozen."""
+    train_vars = {k: v for k, v in variables.items()
+                  if trainable.get(k, False)}
+    frozen_vars = {k: v for k, v in variables.items()
+                   if not trainable.get(k, False)}
+    return train_vars, frozen_vars

@@ -420,3 +420,38 @@ def test_int8_serving_on_the_card_matches_the_cpu(cuda, deterministic_cudnn):
         own = np.take_along_axis(prob[differ], want[differ][:, None], 1)
         other = np.take_along_axis(prob[differ], got[differ][:, None], 1)
         assert np.all(own - other <= 2.0 ** -5 * own)
+
+
+@pytest.mark.gpu
+def test_bf16_training_on_the_card(cuda):
+    """Three bf16 train steps of a small SimpleFCN (``train_encoder``
+    False) on the card: finite losses; the conv kernels and biases and the
+    frozen deconv kernels unchanged bit for bit; BN's gamma and beta and
+    its moving statistics moved."""
+    from modular_semantic_segmentation_torch.models import get_model
+    rng = np.random.RandomState(2)
+    data = {"rgb": (rng.rand(4, 64, 32, 3) * 255).astype(np.float32),
+            "labels": rng.randint(-1, 6, (4, 64, 32)).astype(np.int32)}
+    net = get_model("simple_fcn")(
+        prefix="rgb", modality="rgb",
+        data_description=({"labels": np.int32, "rgb": np.float32},
+                          {"rgb": (None, None, 3), "labels": (None, None)},
+                          6),
+        num_units=8, channel_factor=0.25, batchsize=2, learning_rate=0.01,
+        train_encoder=False, compute_dtype="bfloat16", device=cuda)
+    before = {k: v.clone() for k, v in net.variables.items()}
+    losses = []
+    step = net._train_step
+
+    def recorded(*args):
+        out = step(*args)
+        losses.append(float(out[2]))
+        return out
+    net._train_step = recorded
+    net.fit(data, 3, output=False)
+    assert len(losses) == 3 and np.isfinite(losses).all()
+    for k, v in net.variables.items():
+        assert v.device.type == "cuda" and v.dtype == torch.float32
+        moved = not torch.equal(v, before[k])
+        assert moved == k.endswith(("gamma", "beta", "moving_mean",
+                                    "moving_variance")), k

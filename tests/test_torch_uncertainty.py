@@ -263,8 +263,29 @@ def test_bayesian_fcn_mc_statistics_match_jax(bayesian):
 
 
 def test_bayesian_fcn_training_is_not_ported(bayesian):
-    with pytest.raises(NotImplementedError, match="training"):
-        bayesian[1]._train_outputs(None, {})
+    """BayesianFCN's training outputs, which the port once refused: in
+    train mode at dropout 0 the masked cross-entropy of its stochastic
+    pass equals JAX's (rtol 1e-5), and it records the moving-statistic
+    updates of the same batch norms."""
+    import jax
+    from modular_semantic_segmentation_tpu.ops.variables import \
+        Ctx as JaxCtx
+    from modular_semantic_segmentation_torch.ops.losses import one_hot
+    jnet, tnet = bayesian
+    frames = _frames(n=2, seed=3)
+    jctx = JaxCtx(dict(jnet.variables), train=True,
+                  rng=jax.random.PRNGKey(0))
+    want = jnet._train_outputs(jctx, {
+        "rgb": frames["rgb"],
+        "labels": jax.nn.one_hot(frames["labels"], NUM_CLASSES)})["loss"]
+    tctx = Ctx(tnet.variables, train=True,
+               generator=torch.Generator().manual_seed(0))
+    got = tnet._train_outputs(tctx, {
+        "rgb": torch.from_numpy(frames["rgb"]),
+        "labels": one_hot(torch.from_numpy(frames["labels"]),
+                          NUM_CLASSES)})["loss"]
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+    assert sorted(tctx.updates) == sorted(jctx.updates)
 
 
 # ------------------------------------------------------ UncertaintyModel
