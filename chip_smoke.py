@@ -73,7 +73,28 @@ H100) and the CUDA toolkit. Phases, each printing its own lines:
     statistics moved. Printed: ms per train step (median after 2 warm-up
     steps, host clock around synchronised steps), peak memory, the
     losses, kernel A's launches, and a traced bf16 step by kernel;
-14. reference checks on a small input, the CUDA path against the plain
+14. other architectures, at the flagship's width (768x384, 14 classes,
+    ``num_units`` 64, seeded weights): two AdapNet experts (rgb, depth)
+    score the 4 measure frames in float32 (kernel A, its counts held
+    against the plain version); Bayes (those matrices), Dirichlet
+    (``use_pallas``, fitted on the frames; kernel B's labels held against
+    its plain version) and Average fusions of them serve 4 frames in bf16
+    (ms/frame), bf16 against float32 fused labels, a traced Bayes-AdapNet
+    group (the Dirichlet fit's EM on these random experts is bounded to
+    ADAPNET_EM_ITERATIONS iterations a class); AdapNet (rgb, adam) trained
+    10 steps in
+    float32 and in bf16, FusionFCN (rmsprop) and ProgressiveFCN (depth
+    column, rgb lateral) 5 bf16 steps each, validated through kernel A
+    (gates: the loss over the training frames falls, AdapNet's upconvs
+    change, the frozen variables and the lateral column stay bit for
+    bit, the adapter scales move); on 64x96 against the CPU, a float32
+    Bayes-AdapNet forward and one float32 SGD(1.0) AdapNet step with
+    batch norm from fixed statistics (the two-limit gate of phase 15), and
+    the train-mode step's loss and moving-statistic updates (a TF32
+    control step must fail both limits; its trainable deltas' distance
+    from float64 printed, not gated); at 768x384, the train-mode step's
+    float32 deltas against float64 on the card (printed, not gated);
+15. reference checks on a small input, the CUDA path against the plain
     versions on the CPU; among them one float32 SGD(1.0) train step on
     the card against the CPU's and against float64 on the card, each max
     pool's routes recorded, and a TF32 control step that must fail.
@@ -81,8 +102,9 @@ H100) and the CUDA toolkit. Phases, each printing its own lines:
 The launch counts are set to 0 just before phase 4 and read just after
 phase 7 (confusion and Dirichlet kernels), set to 0 just before and read
 just after phase 8 (stem conv), phase 10 (confusion kernel), the int8
-path of phase 11 (confusion and Dirichlet kernels, ``_int_mm``) and
-phase 13 (confusion kernel). The
+path of phase 11 (confusion and Dirichlet kernels, ``_int_mm``), phase
+13 (confusion kernel), and phase 14's serving path (confusion and
+Dirichlet kernels) and training path (confusion kernel). The
 third-to-last line is the int8 product's JSON record (a library call,
 not a kernel of the port), the second-to-last the kernels' and the last
 ``{"ok": true, "device": {...}}``. Any fault exits non-zero with no
@@ -466,11 +488,12 @@ def build_experts(device="cuda"):
         device=device) for i, m in enumerate(MODALITIES)}
 
 
-def fusion_model(name, experts, device="cuda", **config):
+def fusion_model(name, experts, device="cuda", expert_model="fcn",
+                 **config):
     from modular_semantic_segmentation_torch.models import get_model
     net = get_model(name)(
         data_description=DATA_DESCRIPTION, num_units=NUM_UNITS,
-        expert_model="fcn", prefixes={m: m for m in MODALITIES},
+        expert_model=expert_model, prefixes={m: m for m in MODALITIES},
         batchsize=1, device=device, **config)
     for expert in experts.values():
         net.variables.update(
@@ -525,7 +548,7 @@ def serving_profile(net, frames, label):
               f"x{e.count / len(group):5.1f}  {e.key[:100]}")
 
 
-def fit_dirichlet(net, frames, card):
+def fit_dirichlet(net, frames, card, what="Dirichlet fit"):
     """DirichletFusion.fit on the measure frames, once, timing its two
     halves as it runs them: the sufficient statistics (device time from
     torch.profiler, the fit's only device work, and the host clock) and
@@ -565,7 +588,7 @@ def fit_dirichlet(net, frames, card):
           f"from the label histogram {histogram}")
     device = ("not measured" if device_us <= 0
               else f"{device_us / 1e3:.3f} ms")
-    print(f"Dirichlet fit over {len(labels)} frames at {HEIGHT}x{WIDTH}: "
+    print(f"{what} over {len(labels)} frames at {HEIGHT}x{WIDTH}: "
           f"sufficient statistics device time {device} (torch.profiler), "
           f"{stats_ms:.1f} ms host clock; EM {em_ms:.1f} ms host clock "
           f"({net.config['estimator']}, {NUM_CLASSES} classes x "
@@ -969,17 +992,37 @@ def learnable_frames(seed, count):
     return {"rgb": rgb.astype(np.float32), "labels": labels.astype(np.int32)}
 
 
+def score_checked(score, data, what):
+    """``score(data)`` with kernel A's counts held against its plain
+    version on the same predictions; returns (measures, counts)."""
+    from modular_semantic_segmentation_torch.ops import metrics
+    from modular_semantic_segmentation_torch.ops.cuda import confusion
+    accumulate, plain = metrics.confusion_accumulate, []
+
+    def plain_too(predictions, labels, k, total):
+        plain.append(confusion.confusion_counts_plain(predictions, labels,
+                                                      k))
+        return accumulate(predictions, labels, k, total)
+
+    metrics.confusion_accumulate = plain_too
+    try:
+        measures, counts = score(data)
+    finally:
+        metrics.confusion_accumulate = accumulate
+    want = sum(plain).cpu().numpy().astype(np.float32)
+    check(np.array_equal(counts, want), f"{what}: kernel A's confusion "
+          "counts differ from its plain version")
+    return measures, counts
+
+
 def train_run(net, frames, steps, validation=None):
     """``net.fit`` for ``steps`` steps, observed from outside: each train
     step on the host clock between two synchronisations and its loss;
     each validation ``score`` with its counts held against kernel A's
     plain version on the same predictions. Returns (ms per step, losses,
     peak bytes allocated, validations)."""
-    from modular_semantic_segmentation_torch.ops import metrics
-    from modular_semantic_segmentation_torch.ops.cuda import confusion
-    step, score, accumulate = (net._train_step, net.score,
-                               metrics.confusion_accumulate)
-    times, losses, plain, validations = [], [], [], []
+    step, score = net._train_step, net.score
+    times, losses, validations = [], [], []
 
     def timed_step(*args):
         torch.cuda.synchronize()
@@ -990,29 +1033,19 @@ def train_run(net, frames, steps, validation=None):
         losses.append(float(out[2]))
         return out
 
-    def plain_too(predictions, labels, k, total):
-        plain.append(confusion.confusion_counts_plain(predictions, labels,
-                                                      k))
-        return accumulate(predictions, labels, k, total)
-
     def checked_score(data, *args, **kwargs):
-        plain.clear()
-        measures, counts = score(data, *args, **kwargs)
-        want = sum(plain).cpu().numpy().astype(np.float32)
-        check(np.array_equal(counts, want), "validation: kernel A's "
-              "confusion counts differ from its plain version")
+        measures, counts = score_checked(
+            lambda d: score(d, *args, **kwargs), data, "validation")
         validations.append(int(counts.sum()))
         return measures, counts
 
     net._train_step, net.score = timed_step, checked_score
-    metrics.confusion_accumulate = plain_too
     torch.cuda.reset_peak_memory_stats()
     try:
         net.fit(frames, steps, output=False, validation_dataset=validation,
                 validation_interval=VALIDATION_INTERVAL)
     finally:
         del net._train_step, net.score
-        metrics.confusion_accumulate = accumulate
     return times, losses, torch.cuda.max_memory_allocated(), validations
 
 
@@ -1121,8 +1154,347 @@ def training(card):
     return launches
 
 
-def check_labels(out, what):
-    check(out.shape == (SERVE_FRAMES, HEIGHT, WIDTH),
+# phase 14, the other architectures: AdapNet experts served in the fusion
+# family and trained; FusionFCN and ProgressiveFCN trained
+ADAPNET_SERVE_FRAMES = 4
+ADAPNET_TRAIN_STEPS = 10
+OTHER_TRAIN_STEPS = 5
+# the Dirichlet fit of the random AdapNet experts: their probabilities
+# are near one-hot, and the EM runs to its 10,000-iteration cap on most
+# classes (134 s on the host); its parameters only feed kernel B's check
+ADAPNET_EM_ITERATIONS = 200
+# the train-mode AdapNet step (64x96) on the card against the CPU: its
+# loss, and each moving statistic's update over its largest |update| (at
+# least 1e-3), forward quantities (``train_mode_step_check`` prints how
+# far float32 lies from float64 in each)
+TRAIN_MODE_LOSS_RTOL = 1e-5
+MOVING_ATOL = 1e-3
+
+
+def build_adapnets(device="cuda"):
+    from modular_semantic_segmentation_torch.models import get_model
+    return {m: get_model("adapnet")(
+        data_description=DATA_DESCRIPTION, modality=m, num_units=NUM_UNITS,
+        seed=10 + i, device=device) for i, m in enumerate(MODALITIES)}
+
+
+def adapnet_serving(frames, card):
+    """Two full-width AdapNet experts (rgb, depth; float32) score the
+    measure frames (kernel A, its counts held against the plain version);
+    Bayes on those matrices, Dirichlet (``use_pallas``, fitted on the
+    frames, its EM bounded) and Average fusions of them serve ADAPNET_SERVE_FRAMES frames
+    in bf16; kernel B's labels against its plain version on one frame;
+    bf16 against float32 fused labels; a traced Bayes group."""
+    from modular_semantic_segmentation_torch.ops import \
+        dirichlet_estimation as de
+    from modular_semantic_segmentation_torch.ops.cuda import dirichlet
+    experts = build_adapnets()
+    labelled = int(((frames["labels"] >= 0)
+                    & (frames["labels"] < NUM_CLASSES)).sum())
+    cms = {}
+    for m, net in experts.items():
+        start = time.perf_counter()
+        measures, cms[m] = score_checked(net.score, frames,
+                                         f"AdapNet {m} score")
+        seconds = time.perf_counter() - start
+        check(cms[m].sum() == labelled, f"AdapNet {m}: score counted "
+              f"{cms[m].sum()} of {labelled} pixels")
+        print(f"AdapNet {m} expert, score of {len(frames['labels'])} frames"
+              f" at {HEIGHT}x{WIDTH} (float32): mean_IoU "
+              f"{measures['mean_IoU']:.4f}, {seconds:.3f} s host clock, "
+              f"kernel A's counts equal its plain version's on {card}")
+    served = [{m: frames[m][i] for m in MODALITIES}
+              for i in range(ADAPNET_SERVE_FRAMES)]
+    kinds = {"Bayes": ("bayes_fusion", {"confusion_matrices": cms}),
+             "Dirichlet": ("dirichlet_fusion", {"use_pallas": True}),
+             "Average": ("average_fusion", {})}
+
+    def fusion(name, dtype, **extra):
+        kind, config = kinds[name]
+        return fusion_model(kind, experts, expert_model="adapnet",
+                            compute_dtype=dtype, **config, **extra)
+
+    fusions = {name: fusion(name, "bfloat16") for name in kinds}
+    solver = de.find_dirichlet_priors
+
+    def bounded(*args, **kwargs):
+        return solver(*args, **dict(kwargs, max_iter=ADAPNET_EM_ITERATIONS))
+
+    de.find_dirichlet_priors = bounded
+    try:
+        params = fit_dirichlet(
+            fusions["Dirichlet"], frames, card, what="AdapNet Dirichlet fit "
+            f"(EM at most {ADAPNET_EM_ITERATIONS} iterations a class)")
+    finally:
+        de.find_dirichlet_priors = solver
+    for name, net in fusions.items():
+        before = dirichlet.KERNEL.launches
+        out, ms = serve(net, served)
+        check_labels(out, f"AdapNet {name} serving", ADAPNET_SERVE_FRAMES)
+        launches = dirichlet.KERNEL.launches - before
+        print(f"AdapNet {name} serving: {_runs(ms)} ms/frame over "
+              f"{ADAPNET_SERVE_FRAMES} frames at {HEIGHT}x{WIDTH}, bf16, "
+              f"unroll {UNROLL}, dirichlet launches {launches} (host clock,"
+              f" synchronised; three runs after a warm-up) on {card}")
+        check((launches > 0) == (name == "Dirichlet"), f"AdapNet {name} "
+              f"serving launched kernel B {launches} times")
+    dirich = fusions["Dirichlet"]
+    one = {k: v[:1] for k, v in frames.items()}
+    probs = [torch.from_numpy(dirich.predict(
+        one, output_attr=f"{m}_norm_prob")).reshape(-1, NUM_CLASSES)
+        for m in MODALITIES]
+    coeffs, bias = dirich._kernel_tables(NUM_CLASSES)
+    scores = dirichlet.dirichlet_scores_plain(torch.stack(probs), coeffs,
+                                              bias)
+    got = torch.from_numpy(dirich.predict(one).reshape(-1)).long()
+    gap = scores.max(-1).values - scores.gather(1, got[:, None])[:, 0]
+    rel = gap / scores.max(-1).values.abs().clamp_min(1e-30)
+    b_differ = int((got != scores.argmax(-1)).sum())
+    check(bool((rel <= TIE_RTOL).all()), "AdapNet Dirichlet: kernel B's "
+          "labels are not ties of its plain version's scores")
+    agree = []
+    for name, net in fusions.items():
+        extra = {"dirichlet_params": params} if name == "Dirichlet" else {}
+        f32 = forward(fusion(name, "float32", **extra), one)["prediction"]
+        same = f32 == forward(net, one)["prediction"]
+        agree.append(f"{name} {float(same.float().mean()):.4f}")
+    print(f"AdapNet Dirichlet: kernel B's labels on one served frame equal "
+          f"its plain version's ({b_differ} differ, all ties within rel "
+          f"{TIE_RTOL}); bf16 and f32 fused labels agree on a frame: "
+          f"{', '.join(agree)} on {card}")
+    serving_profile(fusions["Bayes"], served, "Bayes-AdapNet")
+    return experts, cms
+
+
+def with_depth(frames):
+    """The learnable frames with a depth channel that carries the same
+    signal: the red channel over 255."""
+    return dict(frames, depth=frames["rgb"][..., :1] / 255.0)
+
+
+def frames_loss(net, frames):
+    """The mean train-mode loss of ``net`` over the frames, one frame at a
+    time, without a gradient: the same frames before and after training,
+    so that the frames' own spread does not enter."""
+    from modular_semantic_segmentation_torch.ops.losses import one_hot
+    from modular_semantic_segmentation_torch.ops.variables import Ctx
+    losses = []
+    with torch.no_grad():
+        for i in range(len(frames["labels"])):
+            batch = net._preprocess(net._batch_to_device(
+                {k: v[i:i + 1] for k, v in frames.items()}))
+            batch["labels"] = one_hot(batch["labels"], NUM_CLASSES)
+            ctx = Ctx(net.variables, compute_dtype=net.compute_dtype,
+                      train=True)
+            losses.append(float(net._train_outputs(ctx, batch)["loss"]))
+    return float(np.mean(losses))
+
+
+def train_checked(what, net, frames, steps, validation, card):
+    """``train_run``, gated: finite step losses, the loss over the
+    training frames lower after than before, every validation counting
+    the same pixels. Prints ms per step, peak memory and the losses."""
+    before = frames_loss(net, frames)
+    times, losses, peak, validations = train_run(net, frames, steps,
+                                                 validation)
+    after = frames_loss(net, frames)
+    steady = times[TRAIN_WARMUP:]
+    check(np.isfinite(losses).all(), f"{what}: non-finite loss {losses}")
+    check(after < before, f"{what}: the loss over the training frames did "
+          f"not fall ({before:.4f} -> {after:.4f})")
+    check(validations and all(n == validations[0] for n in validations),
+          f"{what}: validations counted {validations}")
+    print(f"training {what}: {statistics.median(steady):.3f} ms per train "
+          f"step (median of {len(steady)} after {TRAIN_WARMUP} warm-up "
+          f"steps; min {min(steady):.3f}, max {max(steady):.3f}; host "
+          f"clock, synchronised) at {HEIGHT}x{WIDTH}, batch 1, peak memory "
+          f"{peak / 2**30:.3f} GiB, {len(validations)} validations of "
+          f"{validations[0]} labelled pixels on {card}")
+    print(f"training {what}: loss over the {len(frames['labels'])} "
+          f"training frames {before:.4f} -> {after:.4f}; step losses "
+          + " ".join(f"{x:.4f}" for x in losses))
+
+
+def other_training(card):
+    """AdapNet (rgb, adam 1e-4) for ADAPNET_TRAIN_STEPS steps in float32
+    and in bf16, then FusionFCN (rmsprop 1e-4) and ProgressiveFCN (depth
+    column, rgb lateral, adam 1e-4) for OTHER_TRAIN_STEPS bf16 steps, on
+    the learnable frames, each validated through kernel A. Gates
+    (``train_checked``): the loss over the training frames falls; AdapNet's
+    upconv kernels and every BN moving statistic
+    change; FusionFCN's bilinear deconvs and ProgressiveFCN's lateral
+    column stay bit for bit, its adapter scales move."""
+    from modular_semantic_segmentation_torch.models import get_model
+    frames = with_depth(learnable_frames(5, TRAIN_FRAMES))
+    validation = with_depth(learnable_frames(6, 2))
+    common = dict(num_units=NUM_UNITS, batchsize=1)
+    for dtype in ("float32", "bfloat16"):
+        net = get_model("adapnet")(data_description=TRAIN_DESCRIPTION,
+                                   modality="rgb", trainer="adam",
+                                   compute_dtype=dtype, **common)
+        before = {k: v.clone() for k, v in net.variables.items()}
+        train_checked(f"AdapNet {dtype}", net, frames, ADAPNET_TRAIN_STEPS,
+                      validation, card)
+        for k in before:
+            if k.endswith(("upconv/kernel", "moving_mean",
+                           "moving_variance")):
+                check(not torch.equal(net.variables[k], before[k]),
+                      f"AdapNet {dtype}: {k} did not change")
+    models = (
+        ("FusionFCN", "fusion_fcn", {"prefixes": {m: m for m in MODALITIES}},
+         lambda k: k.endswith("upscore_conv5/kernel")
+         or k == "fused/upscore/kernel", None),
+        ("ProgressiveFCN", "progressive_fcn",
+         {"prefix": "depth", "modality": "depth",
+          "lateral_columns": {"rgb": "rgb"}},
+         lambda k: k.startswith("rgb_") or k.endswith("upscore/kernel")
+         or k.endswith("upscore_conv5/kernel"), "/adapter/scale"))
+    for what, name, config, frozen, moves in models:
+        # no batch norm in these two: the rgb frames scaled to [0, 1]
+        net = get_model(name)(data_description=DATA_DESCRIPTION,
+                              compute_dtype="bfloat16",
+                              input_scaling={"rgb": 1.0 / 255}, **common,
+                              **config)
+        before = {k: v.clone() for k, v in net.variables.items()}
+        trainer = net.config.get("trainer", "adam")
+        train_checked(f"{what} bfloat16 ({trainer})", net, frames,
+                      OTHER_TRAIN_STEPS, validation, card)
+        kept = [k for k in before if frozen(k)]
+        check(kept and all(torch.equal(net.variables[k], before[k])
+                           for k in kept),
+              f"{what}: a frozen variable changed")
+        moved = [k for k in before if moves and k.endswith(moves)]
+        check(all(not torch.equal(net.variables[k], before[k])
+                  for k in moved), f"{what}: an adapter scale did not move")
+        print(f"{what}: {len(kept)} frozen variables bit for bit"
+              + (f", {len(moved)} adapter scales moved" if moved else ""))
+
+
+def adapnet_reference_checks(experts, cms):
+    """AdapNet on the card against the CPU, 64x96: a float32 Bayes-AdapNet
+    forward; one float32 SGD(1.0) step of the rgb expert with batch norm
+    from random moving statistics (the two-limit gate of
+    ``train_step_check``; the stem pool's routes recorded); and the
+    train-mode step (``train_mode_step_check``)."""
+    rng = np.random.RandomState(7)
+    small = {"rgb": (rng.rand(1, 64, 96, 3) * 255).astype(np.float32),
+             "depth": rng.rand(1, 64, 96, 1).astype(np.float32),
+             "labels": rng.randint(-1, NUM_CLASSES,
+                                   (1, 64, 96)).astype(np.int32)}
+    cpu_experts = build_adapnets(device="cpu")
+    bayes = {d: fusion_model("bayes_fusion", e, device=d,
+                             expert_model="adapnet", confusion_matrices=cms)
+             for d, e in (("cuda", experts), ("cpu", cpu_experts))}
+    worst, same = 0.0, True
+    for m in MODALITIES:
+        got, want = (bayes[d].predict(small, output_attr=f"{m}_prob")
+                     for d in ("cuda", "cpu"))
+        worst = max(worst, float(np.abs(got - want).max()))
+        got, want = (bayes[d].predict(
+            small, output_attr=f"{m}_classification") for d in ("cuda",
+                                                                "cpu"))
+        same = same & (got == want)
+    check(worst <= 1e-4, f"Bayes-AdapNet float32 experts on the card differ"
+          f" from the CPU by {worst} in prob")
+    got, want = (bayes[d].predict(small) for d in ("cuda", "cpu"))
+    check(np.array_equal(got[same], want[same]), "Bayes-AdapNet labels on "
+          "the card differ from the CPU's where the experts agree")
+
+    card_net, cpu_net = experts["rgb"], cpu_experts["rgb"]
+    for k, v in cpu_net.variables.items():
+        if k.endswith("moving_mean"):
+            v = torch.from_numpy(rng.randn(*v.shape).astype(np.float32) * .1)
+        elif k.endswith("moving_variance"):
+            v = torch.from_numpy(rng.rand(*v.shape).astype(np.float32) + .5)
+        cpu_net.variables[k] = v
+        card_net.variables[k] = v.cuda()
+    fixed = train_step_check(card_net, cpu_net, small, train=False,
+                             before_pool=adapnet_before_pool)
+    train_mode = train_mode_step_check(card_net, cpu_net, small)
+    print(f"AdapNet reference checks (64x96, CPU plain versions): "
+          f"Bayes-AdapNet float32 expert prob max diff {worst:.3g}, labels "
+          f"equal where the experts agree ({int(same.sum())} of {same.size}"
+          f" pixels); batch norm from random moving statistics, {fixed}; "
+          f"{train_mode}")
+
+
+def moving_error(got, want):
+    """The largest difference of one step's moving-statistic updates from
+    a reference step's, over the reference's largest |update| (at least
+    1e-3): (worst, its tensor)."""
+    errors = {k: float((got[3][k] - ref).abs().max())
+              / max(float(ref.abs().max()), 1e-3)
+              for k, ref in want[3].items()}
+    name = max(errors, key=errors.get)
+    return errors[name], name
+
+
+def train_mode_step_check(card_net, cpu_net, batch):
+    """One float32 SGD(1.0) train step with batch norm in train mode on
+    the card, held against the CPU's by its forward quantities: the loss
+    within TRAIN_MODE_LOSS_RTOL and each moving statistic's update within
+    MOVING_ATOL of its scale. A TF32 control step must fail both. The
+    trainable deltas' distances from float64 on the card are printed,
+    not gated: at random initialization they part from float64 by
+    percents in float32 (PERF.md). Returns the summary."""
+    from modular_semantic_segmentation_torch.ops.layers import \
+        configure_float32
+    cpu32, card32 = sgd_step(cpu_net, batch), sgd_step(card_net, batch)
+    card64 = sgd_step(card_net, batch, torch.float64)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = sgd_step(card_net, batch)
+    finally:
+        configure_float32()
+    loss_rel, tf_loss_rel = (abs(x[0] - cpu32[0]) / abs(cpu32[0])
+                             for x in (card32, tf32))
+    worst, name = moving_error(card32, cpu32)
+    tf_worst, tf_name = moving_error(tf32, cpu32)
+    f64_loss_rel = abs(card32[0] - card64[0]) / abs(card64[0])
+    f64_worst, f64_name = moving_error(card32, card64)
+    check(loss_rel <= TRAIN_MODE_LOSS_RTOL and np.isfinite(card32[0]),
+          f"train-mode step: loss on the card {card32[0]}, on the CPU "
+          f"{cpu32[0]}")
+    check(worst <= MOVING_ATOL, f"train-mode step: {name}'s update on the "
+          f"card differs from the CPU's by {worst} of its scale")
+    check(tf_loss_rel > TRAIN_MODE_LOSS_RTOL and tf_worst > MOVING_ATOL,
+          f"train-mode step: the TF32 control passes a limit (loss "
+          f"{tf_loss_rel}, {tf_name} {tf_worst})")
+    return (f"train-mode BN step against the CPU: loss relative difference"
+            f" {loss_rel:.3g} (limit {TRAIN_MODE_LOSS_RTOL:g}), largest "
+            f"moving-statistic update difference {worst:.3g} of its scale "
+            f"({name}; limit {MOVING_ATOL:g}); TF32 control {tf_loss_rel:.3g}"
+            f" and {tf_worst:.3g} ({tf_name}): fails both, as it must; "
+            f"float32 against float64 on the card {f64_loss_rel:.3g} and "
+            f"{f64_worst:.3g} ({f64_name}); L2 "
+            f"distance of all trainable deltas from float64 on the card "
+            f"{delta_l2(card32, card64):.3g} (card), "
+            f"{delta_l2(cpu32, card64):.3g} (CPU), card against CPU "
+            f"{delta_l2(card32, cpu32):.3g} (not gated)")
+
+
+def adapnet_step_conditioning(card):
+    """One SGD(1.0) train step (batch norm in train mode) of the rgb
+    AdapNet at 768x384 on a learnable frame, in float32 and in float64 on
+    the card: how far float32 lies from float64 at full size (printed,
+    not gated)."""
+    from modular_semantic_segmentation_torch.models import get_model
+    net = get_model("adapnet")(data_description=TRAIN_DESCRIPTION,
+                               modality="rgb", num_units=NUM_UNITS)
+    frame = learnable_frames(5, 1)
+    f32, f64 = sgd_step(net, frame), sgd_step(net, frame, torch.float64)
+    worst, name, _, _, routes = step_errors(f32, f64, adapnet_before_pool)
+    print(f"AdapNet train-mode SGD(1.0) step at {HEIGHT}x{WIDTH}, float32 "
+          f"against float64 on the card: L2 distance of all deltas "
+          f"{delta_l2(f32, f64):.3g}, largest delta difference {worst:.3g} "
+          f"of its tensor's scale ({name}; stem pool windows routed "
+          f"differently {routes}), loss {f32[0]:.6f} / {f64[0]:.6f} on "
+          f"{card}")
+
+
+def check_labels(out, what, count=SERVE_FRAMES):
+    check(out.shape == (count, HEIGHT, WIDTH),
           f"{what}: output shape {out.shape}")
     check(out.dtype == np.int32, f"{what}: labels of type {out.dtype}, the "
           "reference's are int32")
@@ -1186,11 +1558,33 @@ def reference_checks(experts, bayes, dirich):
           f"{step_summary}")
 
 
-def sgd_step(net, batch, dtype=torch.float32):
+def fixed_bn_step(net, variables, batch):
+    """An SGD(1.0) step of ``net`` on ``batch`` with batch norm from its
+    moving statistics (an affine map, as in eval mode): (new variables,
+    loss). The same layers and loss as the train step."""
+    from modular_semantic_segmentation_torch.ops.losses import one_hot
+    from modular_semantic_segmentation_torch.ops.variables import (
+        Ctx, split_trainable)
+    device_batch = net._preprocess(net._batch_to_device(batch))
+    device_batch["labels"] = one_hot(device_batch["labels"], NUM_CLASSES)
+    train, frozen = split_trainable(variables, net.trainable)
+    leaves = {k: v.detach().requires_grad_() for k, v in train.items()}
+    ctx = Ctx({**frozen, **leaves}, compute_dtype=net.compute_dtype)
+    with torch.enable_grad():
+        loss = net._train_outputs(ctx, device_batch)["loss"]
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+    return ({**variables, **{k: v - g for (k, v), g in zip(train.items(),
+                                                             grads)}},
+            loss.detach())
+
+
+def sgd_step(net, batch, dtype=torch.float32, train=True):
     """One SGD(1.0) train step of ``net`` on ``batch``, its variables and
     convs in ``dtype``: (loss, {trainable name: delta, float64 on the
-    host}, [argmax indices of each max pool, on the host]). With SGD(1.0)
-    a delta is the negative gradient."""
+    host}, [argmax indices of each max pool, on the host], {moving
+    statistic: its update, float64 on the host}). With SGD(1.0) a delta
+    is the negative gradient. With ``train`` False, batch norm runs from
+    its moving statistics (``fixed_bn_step``), which then stay."""
     import torch.nn.functional as F
     from modular_semantic_segmentation_torch.ops import layers as ll
     from modular_semantic_segmentation_torch.ops import optimizers
@@ -1207,14 +1601,42 @@ def sgd_step(net, batch, dtype=torch.float32):
     compute_dtype = net.compute_dtype
     net.compute_dtype, ll.max_pool2d = dtype, recorded
     try:
-        new, _, loss = net._train_step(variables, {}, batch)
+        if train:
+            new, _, loss = net._train_step(variables, {}, batch)
+        else:
+            new, loss = fixed_bn_step(net, variables, batch)
     finally:
         net.compute_dtype, ll.max_pool2d = compute_dtype, max_pool2d
-    return (float(loss), {k: (new[k] - variables[k]).double().cpu()
-                          for k in new if net.trainable[k]}, routes)
+    deltas = {k: (new[k] - variables[k]).double().cpu() for k in new}
+    moving = ("moving_mean", "moving_variance")
+    return (float(loss), {k: d for k, d in deltas.items()
+                          if net.trainable[k]}, routes,
+            {k: d for k, d in deltas.items() if k.endswith(moving)})
 
 
-def step_errors(got, want):
+def delta_l2(got, want):
+    """The L2 distance of all of one step's deltas from a reference
+    step's, over the L2 norm of the reference's."""
+    num = sum(float((got[1][k] - ref).pow(2).sum())
+              for k, ref in want[1].items())
+    return (num / sum(float(ref.pow(2).sum()) for ref in want[1].values())
+            ) ** 0.5
+
+
+def fcn_before_pool(name, pool):
+    """Whether SimpleFCN's tensor ``name`` lies before its ``pool``-th max
+    pool (1-based)."""
+    block = re.search(r"/conv(\d)_", name)
+    return block is not None and int(block.group(1)) <= pool
+
+
+def adapnet_before_pool(name, pool):
+    """Whether AdapNet's tensor ``name`` lies before its stem pool, its
+    only one."""
+    return pool >= 1 and "/block_0_" in name
+
+
+def step_errors(got, want, before_pool=fcn_before_pool):
     """How far one step's deltas are from a reference step's, each
     tensor's largest difference over the reference's largest |delta| (at
     least 1e-3): (worst, its tensor, worst over the tensors no max pool
@@ -1234,12 +1656,8 @@ def step_errors(got, want):
     errors = {k: float((got[1][k] - ref).abs().max())
               / max(float(ref.abs().max()), 1e-3)
               for k, ref in want[1].items()}
-
-    def reached(name):
-        block = re.search(r"/conv(\d)_", name)
-        return block is not None and int(block.group(1)) <= deepest
     name = max(errors, key=errors.get)
-    clean = [k for k in errors if not reached(k)]
+    clean = [k for k in errors if not before_pool(k, deepest)]
     check(clean, "train step: every tensor is before a rerouted pool")
     clean_name = max(clean, key=errors.get)
     return errors[name], name, errors[clean_name], clean_name, rerouted
@@ -1253,38 +1671,41 @@ def channel_share(got, want, name):
     return float(diff.max() / diff.sum().clamp_min(1e-300))
 
 
-def train_step_check(card_net, cpu_net, batch):
-    """One float32 SGD(1.0) train step of the rgb expert (no batch norm, as
-    the fusion experts have it) on the card, held against the same step on
-    the CPU (loss within rtol STEP_LOSS_RTOL, each tensor's delta within
-    STEP_ATOL of its scale) and against the step in float64 on the card
-    (the same, and within ARITHMETIC_ATOL on the tensors no rerouted pool
-    reaches). A control step with TF32 on must fail the float64 check, so
-    the check sees a TF32-class backward. Returns the summary."""
+def train_step_check(card_net, cpu_net, batch, train=True,
+                     before_pool=fcn_before_pool):
+    """One float32 SGD(1.0) train step (``sgd_step``, ``train``) of a model
+    on the card, held against the same step on the CPU (loss within rtol
+    STEP_LOSS_RTOL, each tensor's delta within STEP_ATOL of its scale) and
+    against the step in float64 on the card (the same, and within
+    ARITHMETIC_ATOL on the tensors no rerouted pool reaches). A control
+    step with TF32 on must fail the float64 check, so the check sees a
+    TF32-class backward. Returns the summary."""
     from modular_semantic_segmentation_torch.ops.layers import \
         configure_float32
-    cpu32 = sgd_step(cpu_net, batch)
-    card32 = sgd_step(card_net, batch)
-    card64 = sgd_step(card_net, batch, torch.float64)
+    cpu32 = sgd_step(cpu_net, batch, train=train)
+    card32 = sgd_step(card_net, batch, train=train)
+    card64 = sgd_step(card_net, batch, torch.float64, train=train)
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
-        tf32 = sgd_step(card_net, batch)
+        tf32 = sgd_step(card_net, batch, train=train)
     finally:
         configure_float32()
     loss_rel = abs(card32[0] - cpu32[0]) / abs(cpu32[0])
     check(loss_rel <= STEP_LOSS_RTOL, f"train step: loss on the card "
           f"{card32[0]}, on the CPU {cpu32[0]}")
-    cpu_worst, cpu_name, _, _, cpu_routes = step_errors(card32, cpu32)
+    cpu_worst, cpu_name, _, _, cpu_routes = step_errors(card32, cpu32,
+                                                        before_pool)
     check(cpu_worst <= STEP_ATOL, f"train step: {cpu_name}'s delta on the "
           f"card differs from the CPU's by {cpu_worst} of its scale")
-    worst, name, clean, clean_name, routes = step_errors(card32, card64)
+    worst, name, clean, clean_name, routes = step_errors(card32, card64,
+                                                         before_pool)
     check(worst <= STEP_ATOL and clean <= ARITHMETIC_ATOL,
           f"train step: float32 on the card against float64: {name} "
           f"{worst}, {clean_name} {clean} of its scale (rerouted pool "
           f"windows {routes})")
     tf_worst, tf_name, tf_clean, tf_clean_name, tf_routes = step_errors(
-        tf32, card64)
+        tf32, card64, before_pool)
     check(tf_worst > STEP_ATOL and tf_clean > ARITHMETIC_ATOL,
           f"train step: the TF32 control passes the float64 check ({tf_name}"
           f" {tf_worst}, {tf_clean_name} {tf_clean})")
@@ -1433,6 +1854,31 @@ def main():
     # ---- the training path: kernel A's launch count from 0 (in training)
     timed("training", training, smi_line)
     # ---- end of the training path
+
+    # ---- the AdapNet serving path: the launch counts from 0
+    for kernel in kernels:
+        kernel.launches = 0
+    adapnets, adapnet_cms = timed("AdapNet serving", adapnet_serving, frames,
+                                  smi_line)
+    adapnet_launches = {k.source: k.launches for k in kernels}
+    # ---- end of the AdapNet serving path
+    print(f"AdapNet serving path: confusion launches "
+          f"{adapnet_launches['confusion']}, dirichlet launches "
+          f"{adapnet_launches['dirichlet']}")
+    check(all(adapnet_launches.values()), "the AdapNet serving path did "
+          f"not launch every kernel of its path: {adapnet_launches}")
+    # ---- the other architectures' training path: kernel A's count from 0
+    confusion.KERNEL.launches = 0
+    timed("other architectures, training", other_training, smi_line)
+    trained_launches = confusion.KERNEL.launches
+    # ---- end of the other architectures' training path
+    print(f"other architectures, training path: confusion launches "
+          f"{trained_launches}")
+    check(trained_launches > 0, "the other architectures' training path "
+          "launched no confusion kernel")
+    timed("AdapNet reference checks", adapnet_reference_checks, adapnets,
+          adapnet_cms)
+    timed("AdapNet step conditioning", adapnet_step_conditioning, smi_line)
     timed("reference checks", reference_checks, experts, bayes, dirich)
     for record in records:
         record["launches"] = launches[record["name"]]

@@ -1,5 +1,4 @@
-"""Model registry: the subset of the JAX package's registry that is ported,
-under the JAX package's names.
+"""Model registry: the JAX package's registry, under its names.
 
 Lazy imports, as in the JAX package; an unknown or not yet ported name
 raises the JAX package's ``UserWarning``. The int8 serving functions
@@ -12,6 +11,7 @@ import importlib
 _REGISTRY = {
     "fcn": ("simple_fcn", "SimpleFCN"),
     "simple_fcn": ("simple_fcn", "SimpleFCN"),
+    "fusion_fcn": ("fusion_fcn", "FusionFCN"),
     "bayes_mix": ("bayes_fusion", "BayesFusion"),
     "bayes_fusion": ("bayes_fusion", "BayesFusion"),
     "dirichlet_mix": ("dirichlet_fusion", "DirichletFusion"),
@@ -20,7 +20,9 @@ _REGISTRY = {
     "average_fusion": ("average_fusion", "AverageFusion"),
     "variance": ("variance_fusion", "VarianceFusion"),
     "variance_fusion": ("variance_fusion", "VarianceFusion"),
+    "adapnet": ("adapnet", "Adapnet"),
     "bayesian_fcn": ("bayesian_fcn", "BayesianFCN"),
+    "progressive_fcn": ("progressive_fcn", "ProgressiveFCN"),
     "uncertainty_dirichlet_mix": ("uncertainty_dirichlet_fusion",
                                   "UncertaintyDirichletFusion"),
 }

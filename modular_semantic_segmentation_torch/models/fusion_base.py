@@ -2,14 +2,16 @@
 outputs are fused (counterpart of the JAX package's
 ``models/fusion_base.py``).
 
-The experts run one after the other. Their FCN stems go through
-``models/packed_experts.py`` when it applies (``pack_experts``, default
-on), which selects the int8 scales of the packed stem convs.
+The experts, FCN or AdapNet, run one after the other. FCN stems go
+through ``models/packed_experts.py`` when it applies (``pack_experts``,
+default on), which selects the int8 scales of the packed stem convs.
 """
 
 import torch
 
 from modular_semantic_segmentation_torch.ops import layers as ll
+from modular_semantic_segmentation_torch.models.adapnet import (
+    INT8_NOT_PORTED, adapnet, adapnet_variable_specs)
 from modular_semantic_segmentation_torch.models.estimator import Estimator
 from modular_semantic_segmentation_torch.models.packed_experts import (
     can_pack_stems, packed_fcn_stems)
@@ -22,16 +24,17 @@ def test_pipeline(ctx, inputs, prefix, expert_model, num_units, num_classes,
                   stem_layers=None, **_):
     """Frozen expert network + softmax 'prob' and argmax 'classification'.
 
-    ``batch_normalization`` defaults to False, like the reference's
-    hardcoded ``batchnorm=False``; eval-mode BN uses the imported moving
-    statistics when it is on. ``stem_layers``: the expert's precomputed
-    conv1_1..conv2_1 layers (``models/packed_experts.py``), FCN only."""
-    if expert_model == "fcn":
+    ``batch_normalization`` (FCN experts) defaults to False, like the
+    reference's hardcoded ``batchnorm=False``; eval-mode BN uses the
+    imported moving statistics when it is on. AdapNet experts always have
+    batch norm. ``stem_layers``: the expert's precomputed conv1_1..conv2_1
+    layers (``models/packed_experts.py``), FCN only."""
+    if expert_model == "adapnet":
+        outputs = adapnet(ctx, inputs, prefix, num_units, num_classes)
+    elif expert_model == "fcn":
         outputs = fcn(ctx, inputs, prefix, num_units, num_classes,
                       batchnorm=batch_normalization,
                       channel_factor=channel_factor, stem_layers=stem_layers)
-    elif expert_model == "adapnet":
-        raise NotImplementedError("AdapNet experts are not ported yet")
     else:
         raise UserWarning(f"ERROR: Expert Model {expert_model} not found")
     outputs["prob"] = ll.softmax(outputs["score"])
@@ -62,7 +65,7 @@ class FusionModel(Estimator):
 
     Config:
         prefixes: dict {modality: variable-name prefix} for the experts.
-        expert_model: 'fcn' (AdapNet experts are not ported yet).
+        expert_model: 'fcn' | 'adapnet' (int8 serving: FCN only).
         pack_experts: run the FCN stems through ``packed_fcn_stems``
             (default True).
     """
@@ -85,18 +88,26 @@ class FusionModel(Estimator):
             custom_training=True, **config)
 
     def _variable_specs(self):
-        if self.config.get("expert_model") != "fcn":
-            raise NotImplementedError(
-                f"expert_model '{self.config.get('expert_model')}' is not "
-                "ported yet")
+        expert_model = self.config.get("expert_model")
+        if expert_model not in ("fcn", "adapnet"):
+            raise UserWarning(f"ERROR: Expert Model {expert_model} not found")
         specs = []
         for m in self.modalities:
-            specs += fcn_variable_specs(
-                self.config["prefixes"][m], self._input_channels(m),
-                self.config["num_units"], self.config["num_classes"],
-                batchnorm=self.config.get("batch_normalization", False),
-                channel_factor=self.config.get("channel_factor", 1.0))
+            args = (self.config["prefixes"][m], self._input_channels(m),
+                    self.config["num_units"], self.config["num_classes"])
+            if expert_model == "adapnet":
+                specs += adapnet_variable_specs(*args)
+            else:
+                specs += fcn_variable_specs(
+                    *args,
+                    batchnorm=self.config.get("batch_normalization", False),
+                    channel_factor=self.config.get("channel_factor", 1.0))
         return specs
+
+    def quantize_for_serving(self, *args, **kwargs):
+        if self.config.get("expert_model") == "adapnet":
+            raise NotImplementedError(INT8_NOT_PORTED)
+        return Estimator.quantize_for_serving(self, *args, **kwargs)
 
     def _fusion(self, expert_outputs):
         """Fuse expert outputs into a dict with at least 'prediction'."""

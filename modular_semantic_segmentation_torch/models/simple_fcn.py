@@ -18,6 +18,7 @@ be made up front from a seed.
 import torch
 
 from modular_semantic_segmentation_torch.ops import init as initializers
+from modular_semantic_segmentation_torch.ops.init import layer_specs
 from modular_semantic_segmentation_torch.ops import layers as ll
 from modular_semantic_segmentation_torch.ops.losses import cross_entropy
 from modular_semantic_segmentation_torch.models.estimator import Estimator
@@ -165,25 +166,6 @@ def fcn(ctx, inputs, prefix, num_units, num_classes, batchnorm=True,
     return layers
 
 
-def _layer_specs(scope, kernel_shape, out_ch, batchnorm, trainable=True,
-                 bias=True, kernel_init=initializers.glorot_uniform):
-    """Specs of one conv or deconv: kernel and bias train when
-    ``trainable``; BN's gamma and beta always train and its moving
-    statistics never do, as the JAX package's layers create them."""
-    specs = [(f"{scope}/kernel", kernel_shape, kernel_init, trainable)]
-    if bias:
-        specs.append((f"{scope}/bias", (out_ch,), initializers.zeros,
-                      trainable))
-    if batchnorm:
-        specs += [
-            (f"{scope}/gamma", (out_ch,), initializers.ones, True),
-            (f"{scope}/beta", (out_ch,), initializers.zeros, True),
-            (f"{scope}/moving_mean", (out_ch,), initializers.zeros, False),
-            (f"{scope}/moving_variance", (out_ch,), initializers.ones,
-             False)]
-    return specs
-
-
 def fcn_variable_specs(prefix, in_channels, num_units, num_classes,
                        batchnorm=True, channel_factor=1.0, trainable=True):
     """[(name, shape, initializer, trainable)] of every variable
@@ -200,20 +182,32 @@ def fcn_variable_specs(prefix, in_channels, num_units, num_classes,
              ("conv5_3", c(512), c(512))]
     specs = []
     for name, cin, cout in convs:
-        specs += _layer_specs(f"{prefix}/{name}", (3, 3, cin, cout), cout,
-                              batchnorm, trainable)
+        specs += layer_specs(f"{prefix}/{name}", (3, 3, cin, cout), cout,
+                             batchnorm, trainable)
     for name in ("score_conv4", "score_conv5"):
-        specs += _layer_specs(f"{prefix}/{name}", (1, 1, c(512), num_units),
-                              num_units, batchnorm, trainable)
-    for name, k in (("upscore_conv5", 4), ("upscore", 16)):
-        specs += _layer_specs(f"{prefix}/{name}",
-                              (k, k, num_units, num_units), num_units,
-                              batchnorm, trainable=False, bias=False,
-                              kernel_init=initializers.
-                              bilinear_filter_initializer)
-    specs += _layer_specs(f"{prefix}/score", (1, 1, num_units, num_classes),
-                          num_classes, batchnorm, trainable)
-    return specs
+        specs += layer_specs(f"{prefix}/{name}", (1, 1, c(512), num_units),
+                             num_units, batchnorm, trainable)
+    specs += bilinear_deconv_specs(f"{prefix}/upscore_conv5", 4, num_units,
+                                   batchnorm)
+    return specs + decoder_variable_specs(prefix, num_units, num_classes,
+                                          batchnorm, trainable)
+
+
+def bilinear_deconv_specs(scope, kernel, units, batchnorm):
+    """Specs of a frozen square bilinear deconv without bias."""
+    return layer_specs(scope, (kernel, kernel, units, units), units,
+                       batchnorm, trainable=False, bias=False,
+                       kernel_init=initializers.bilinear_filter_initializer)
+
+
+def decoder_variable_specs(prefix, num_units, num_classes, batchnorm=True,
+                           trainable=True):
+    """Specs of the variables :func:`decoder` reads: the frozen 16x16/s8
+    deconv and the class score conv (``trainable``)."""
+    return (bilinear_deconv_specs(f"{prefix}/upscore", 16, num_units,
+                                  batchnorm)
+            + layer_specs(f"{prefix}/score", (1, 1, num_units, num_classes),
+                          num_classes, batchnorm, trainable))
 
 
 class SimpleFCN(Estimator):

@@ -1,10 +1,11 @@
 """Initializers, as seeded numpy, and a variable store built from specs.
 
 Mirrors the JAX package's ``ops/init.py``: Glorot-uniform conv kernels,
-zero biases, BN ones/zeros and the frozen bilinear-interpolation kernel of
-the transposed convolutions. The random numbers come from a numpy
-``RandomState``, so full-width weights are made from a seed without any
-file (they differ from the JAX package's ``jax.random`` draws; tests carry
+zero biases, BN ones/zeros, the frozen bilinear-interpolation kernel of
+the transposed convolutions, the random pick ``selection`` (the adapters'
+scales) and the progressive nets' ``half_zeros``. The random numbers come
+from a numpy ``RandomState``, so full-width weights are made from a seed
+without any file (they differ from the JAX package's ``jax.random`` draws; tests carry
 JAX weights across with ``models.params.from_jax_variables``).
 
 An initializer is ``fn(rng, shape) -> np.ndarray`` (float32).
@@ -74,8 +75,60 @@ def build_variables(specs, seed=0, device="cpu"):
             for name, shape, init, *_ in specs}
 
 
+def layer_specs(scope, kernel_shape, out_ch, batchnorm, trainable=True,
+                bias=True, kernel_init=glorot_uniform):
+    """Specs of one conv or deconv, as the JAX package's layers create its
+    variables: the kernel and bias (``bias``) train when ``trainable``;
+    BN's gamma and beta always train and its moving statistics never
+    do."""
+    specs = [(f"{scope}/kernel", kernel_shape, kernel_init, trainable)]
+    if bias:
+        specs.append((f"{scope}/bias", (out_ch,), zeros, trainable))
+    if batchnorm:
+        specs += [(f"{scope}/gamma", (out_ch,), ones, True),
+                  (f"{scope}/beta", (out_ch,), zeros, True),
+                  (f"{scope}/moving_mean", (out_ch,), zeros, False),
+                  (f"{scope}/moving_variance", (out_ch,), ones, False)]
+    return specs
+
+
 def trainable_map(specs):
     """``{name: bool}`` from ``[(name, shape, initializer, trainable),
     ...]``: which variables the optimizer updates (the JAX package's
     ``net.trainable``)."""
     return {name: bool(trainable) for name, _, _, trainable in specs}
+
+
+def selection(values):
+    """Initialize to a random pick from ``values`` (a scalar pick fills
+    the whole requested shape), as the JAX package's ``selection``; the
+    pick comes from the port's rng, so it matches JAX's in distribution
+    only."""
+    def _init(rng, shape):
+        pick = values[rng.randint(len(values))]
+        return np.broadcast_to(np.asarray(pick, np.float32),
+                               shape).copy()
+    return _init
+
+
+def half_zeros(only_dampened=True):
+    """The progressive nets' combination-kernel initializer, as the JAX
+    package's ``half_zeros``: the first half of the input channels is
+    0.1 * Glorot-uniform (zero unless ``only_dampened``), the second half
+    the identity at the kernel's centre when dim_in == 2 * dim_out, else
+    Glorot-uniform."""
+    def _init(rng, shape):
+        kh, kw, dim_in, dim_out = shape
+        if dim_in % 2:
+            raise ValueError(f"half_zeros needs an even input dimension, "
+                             f"got {dim_in}")
+        half = (kh, kw, dim_in // 2, dim_out)
+        first = (0.1 * glorot_uniform(rng, half) if only_dampened
+                 else np.zeros(half, np.float32))
+        if dim_in == 2 * dim_out:
+            second = np.zeros(half, np.float32)
+            second[kh // 2, kw // 2] = np.eye(dim_out)
+        else:
+            second = glorot_uniform(rng, half)
+        return np.concatenate([first, second], axis=2).astype(np.float32)
+    return _init

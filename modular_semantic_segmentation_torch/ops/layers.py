@@ -8,12 +8,15 @@ Counterpart of the JAX package's ``ops/layers.py``:
     * batch_norm: eps 1e-3, in f32; eval mode from the moving statistics,
       train mode (``ctx.train``) from the batch's, recording the moving
       statistics' momentum-0.99 update in ``ctx.updates``;
-    * deconv2d: transposed conv with a frozen kernel stored in the TF
-      conv2d_transpose layout [H, W, out, in]; channel-diagonal kernels go
-      through ``ops/fast_upsample.diagonal_upsample``, others through a
-      dense ``conv_transpose2d``;
-    * max_pool2d (VALID), softmax (with a temperature), log_softmax,
-      entropy;
+    * deconv2d: transposed conv with a kernel stored in the TF
+      conv2d_transpose layout [H, W, out, in], frozen or trainable; frozen
+      channel-diagonal kernels go through
+      ``ops/fast_upsample.diagonal_upsample``, the others through a dense
+      ``conv_transpose2d``;
+    * max_pool2d (VALID; its gradient goes to the first row-major maximum
+      of each window, as the JAX package's mask gradient), softmax (with a
+      temperature), log_softmax, entropy;
+    * adap_conv: the progressive nets' adapter block;
     * dropout: TF-style MC dropout drawing from ``ctx.next_generator()``.
 
 Tensors are NHWC at every function here. A convolution sees the
@@ -74,7 +77,8 @@ def batch_norm(ctx, x, name):
     """TF1 batch normalization over the channel (last) axis.
 
     Variables ``<name>/{gamma,beta,moving_mean,moving_variance}``. The
-    statistics and the affine run in float32 and the result is cast back
+    statistics and the affine run in float32 (float64 for a float64
+    ``x``, the reference steps of the checks) and the result is cast back
     to ``x.dtype``. In train mode the batch mean and the biased variance
     over every other axis (two passes, as ``tf.nn.moments``; the mean
     inside the variance carries no gradient, as in the JAX package)
@@ -87,7 +91,7 @@ def batch_norm(ctx, x, name):
         beta = ctx.get("beta")
         mean = ctx.get("moving_mean")
         var = ctx.get("moving_variance")
-        x32 = x.float()
+        x32 = x.to(torch.promote_types(x.dtype, torch.float32))
         if ctx.train:
             axes = tuple(range(x.ndim - 1))
             moving_mean, moving_var = mean, var
@@ -161,12 +165,14 @@ def _int8_operands(ctx, kernel, act_scale):
 
 
 def conv2d(ctx, x, filters, kernel_size, name, strides=1, dilation_rate=1,
-           activation=torch.relu, batch_normalization=False):
+           activation=torch.relu, use_bias=True, batch_normalization=False):
     """2-D convolution, TF SAME padding, with bias and optional
     batch-norm-then-activation.
 
     Order as in the JAX package: conv + bias (in float32) -> cast to the
     compute dtype -> [BN] -> activation. Kernel layout [H, W, in, out].
+    With ``use_bias=False`` there is no ``bias`` variable and no add: the
+    conv's output reaches the epilogue in the compute dtype.
 
     With ``ctx.calibrate`` the input's |max| (or percentile) is recorded
     first (:func:`_calibrate`). When ``ctx.act_scales`` holds this conv's
@@ -200,7 +206,9 @@ def conv2d(ctx, x, filters, kernel_size, name, strides=1, dilation_rate=1,
                 int8_conv.quantize(x, ascale), kq_t, (kh, kw), (sh, sw),
                 (dh, dw), (ph, pw))
             # int32 * float32 [out] promotes to float32 in one pass
-            out = torch.mul(acc, dequant).add_(ctx.get("bias"))
+            out = torch.mul(acc, dequant)
+            if use_bias:
+                out.add_(ctx.get("bias"))
         else:
             xd = x.to(dtype)
             if ph[0] == ph[1] and pw[0] == pw[1]:
@@ -213,8 +221,10 @@ def conv2d(ctx, x, filters, kernel_size, name, strides=1, dilation_rate=1,
             out = F.conv2d(xd.permute(0, 3, 1, 2),
                            kernel.permute(3, 2, 0, 1).to(dtype),
                            stride=(sh, sw), padding=pad, dilation=(dh, dw))
-            # float32 promotion, as jnp's bf16 + f32 in the JAX package
-            out = out.permute(0, 2, 3, 1) + ctx.get("bias")
+            out = out.permute(0, 2, 3, 1)
+            if use_bias:
+                # float32 promotion, as jnp's bf16 + f32 in the JAX package
+                out = out + ctx.get("bias")
     # outside the conv's scope: batch_norm enters <name> itself
     return _epilogue(ctx, out, name, activation, batch_normalization)
 
@@ -238,13 +248,18 @@ def _channel_diagonal(ctx, kernel):
 
 
 def deconv2d(ctx, x, filters, kernel_size, name, strides=1, activation=None,
-             batch_normalization=True):
-    """Transposed convolution with a frozen kernel [H, W, out, in], no bias.
+             use_bias=False, trainable=False, batch_normalization=True):
+    """Transposed convolution with a kernel [H, W, out, in].
 
     TF ``conv2d_transpose`` semantics (the gradient of a forward conv with
-    this HWIO kernel), SAME padding giving out = in * stride. A
-    channel-diagonal kernel (the frozen bilinear initializer) takes the
-    depthwise path.
+    this HWIO kernel), SAME padding giving out = in * stride. A frozen
+    (not ``trainable``) square-channel kernel that is channel-diagonal
+    (the bilinear initializer) takes the depthwise path, as in the JAX
+    package; that path would give the off-diagonal weights of a trainable
+    kernel no gradient. Every other kernel takes a dense
+    ``conv_transpose2d`` and the SAME crop, whose autograd gives the
+    kernel its full gradient. ``use_bias`` adds ``<name>/bias``
+    (float32).
     """
     kh, kw = _pair(kernel_size)
     sh, sw = _pair(strides)
@@ -257,14 +272,14 @@ def deconv2d(ctx, x, filters, kernel_size, name, strides=1, activation=None,
         kernel = ctx.get("kernel")
         _check_shape(kernel, (kh, kw, int(filters), in_ch),
                      ctx.full_name("kernel"))
-        if (int(filters) == in_ch and kh == kw and sh == sw
-                and _channel_diagonal(ctx, kernel)):
+        if (not trainable and int(filters) == in_ch and kh == kw
+                and sh == sw and _channel_diagonal(ctx, kernel)):
             idx = torch.arange(in_ch, device=kernel.device)
             diag = kernel[:, :, idx, idx]
             out = diagonal_upsample(x.to(dtype), diag.to(dtype), sh)
         else:
-            # dense fallback: PyTorch's conv_transpose2d weight is
-            # [in, out, kh, kw], the same gradient-of-conv semantics
+            # PyTorch's conv_transpose2d weight is [in, out, kh, kw], the
+            # same gradient-of-conv semantics
             out = F.conv_transpose2d(x.to(dtype).permute(0, 3, 1, 2),
                                      kernel.permute(3, 2, 0, 1).to(dtype),
                                      stride=(sh, sw))
@@ -272,14 +287,47 @@ def deconv2d(ctx, x, filters, kernel_size, name, strides=1, activation=None,
             lo_w = same_transpose_crop(kw, sw)
             out = out[:, :, lo_h:lo_h + h * sh, lo_w:lo_w + w * sw]
             out = out.permute(0, 2, 3, 1)
+        if use_bias:
+            out = out + ctx.get("bias")
     return _epilogue(ctx, out, name, activation, batch_normalization)
 
 
 def max_pool2d(ctx, x, pool_size, strides):
-    """Max pooling with TF layers' default VALID padding."""
+    """Max pooling with TF layers' default VALID padding.
+
+    PyTorch's kernels, on the CPU and on the card, take the first maximum
+    of a window in row-major order (a later value must be strictly
+    larger), so the gradient of a window whose maximum is tied goes to
+    its first one, as the JAX package's mask gradient (``custom_grad``)
+    and XLA's SelectAndScatter route it."""
     out = F.max_pool2d(x.permute(0, 3, 1, 2), _pair(pool_size),
                        _pair(strides))
     return out.permute(0, 2, 3, 1)
+
+
+def adap_conv(ctx, x, adapter_inputs, filters, kernel_size,
+              name="adap_conv", extra_convolution=True,
+              activation=torch.relu, **conv_kwargs):
+    """The progressive nets' adapter block (arXiv 1606.04671 eq. 2), as
+    the JAX package's: each lateral input times its scale
+    (``<name>/adapter/scale``, one per column), concatenated; an optional
+    1x1 conv to x's width (``<name>/adapter/adapter``); concatenated after
+    ``x``; then the ``<name>/combination`` conv with ``conv_kwargs``.
+    How the scales and the combination kernel start, and what trains, is
+    in the variable specs."""
+    with ctx.scope(name):
+        with ctx.scope("adapter"):
+            scale = ctx.get("scale")
+            _check_shape(scale, (len(adapter_inputs),),
+                         ctx.full_name("scale"))
+            scaled = torch.cat([scale[i] * column for i, column
+                                in enumerate(adapter_inputs)], dim=-1)
+            adapter = (conv2d(ctx, scaled, int(x.shape[-1]), 1, "adapter",
+                              activation=activation)
+                       if extra_convolution else scaled)
+        together = torch.cat([x, adapter], dim=-1)
+        return conv2d(ctx, together, filters, kernel_size, "combination",
+                      activation=activation, **conv_kwargs)
 
 
 def log_softmax(x):

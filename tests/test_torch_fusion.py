@@ -191,8 +191,8 @@ def test_dirichlet_measurement_phase_predicts_zeros():
 
 def test_registry_matches_jax_names():
     for name in ("fcn", "simple_fcn", "bayes_mix", "bayes_fusion",
-                 "dirichlet_mix", "dirichlet_fusion"):
+                 "dirichlet_mix", "dirichlet_fusion", "adapnet",
+                 "fusion_fcn", "progressive_fcn"):
         assert get_model(name).__name__ == jax_model(name).__name__
-    for name in ("no_such_model", "adapnet"):
-        with pytest.raises(UserWarning, match="not found"):
-            get_model(name)
+    with pytest.raises(UserWarning, match="not found"):
+        get_model("no_such_model")

@@ -26,6 +26,7 @@ from modular_semantic_segmentation_torch.ops.cuda import confusion
 from modular_semantic_segmentation_torch.ops.cuda import dirichlet
 from modular_semantic_segmentation_torch.ops.cuda import stem_conv
 from modular_semantic_segmentation_torch.ops import int8_conv
+from modular_semantic_segmentation_torch.ops.variables import Ctx
 
 
 @pytest.fixture
@@ -455,3 +456,53 @@ def test_bf16_training_on_the_card(cuda):
         moved = not torch.equal(v, before[k])
         assert moved == k.endswith(("gamma", "beta", "moving_mean",
                                     "moving_variance")), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,s,cin,cout,shape", [
+    (4, 2, 2048, 64, (1, 48, 24)), (16, 8, 64, 14, (1, 96, 48))])
+def test_trainable_deconv_on_the_card_matches_the_cpu(cuda, k, s, cin, cout,
+                                                      shape):
+    """AdapNet's two trainable upconvs at 768x384 (``deconv2d``'s dense
+    ``conv_transpose2d``, float32, TF32 off): output and both gradients
+    within 1e-4 of the largest |value| of the CPU's. The kernel gradient
+    sums 1,152 to 4,608 positions a weight, in cuDNN's order on the card
+    (float32 worst case N * eps: 2.7e-4)."""
+    from modular_semantic_segmentation_torch.ops import layers as ll
+    ll.configure_float32()
+    gen = torch.Generator().manual_seed(k)
+    x = torch.randn(*shape, cin, generator=gen)
+    kernel = torch.randn(k, k, cout, cin, generator=gen) * 0.05
+    ct = torch.randn(shape[0], shape[1] * s, shape[2] * s, cout,
+                     generator=gen)
+    results = []
+    for device in ("cpu", cuda):
+        xd = x.to(device).requires_grad_()
+        kd = kernel.to(device).requires_grad_()
+        out = ll.deconv2d(Ctx({"d/kernel": kd}), xd, cout, k, "d",
+                          strides=s, batch_normalization=False,
+                          trainable=True)
+        grads = torch.autograd.grad((out * ct.to(device)).sum(), (xd, kd))
+        results.append([t.detach().cpu() for t in (out, *grads)])
+    errors = [float((got - want).abs().max() / want.abs().max())
+              for want, got in zip(*results)]
+    assert max(errors) <= 1e-4, errors
+
+
+@pytest.mark.gpu
+def test_max_pool_routes_ties_on_the_card_like_the_cpu(cuda):
+    """2x2/s2 max pool on channels-last NHWC (the layers' layout) with
+    all-zero windows and tied maxima: the card's gradient goes to the
+    same (first row-major) input as the CPU's."""
+    from modular_semantic_segmentation_torch.ops import layers as ll
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randint(0, 3, (2, 64, 96, 64), generator=gen).float() * 0.5
+    x[0, :8, :8] = 0.0
+    ct = torch.randn(2, 32, 48, 64, generator=gen)
+    grads = []
+    for device in ("cpu", cuda):
+        xd = x.to(device).requires_grad_()
+        out = ll.max_pool2d(None, xd, 2, 2)
+        (grad,) = torch.autograd.grad((out * ct.to(device)).sum(), xd)
+        grads.append(grad.cpu())
+    assert torch.equal(grads[0], grads[1])
