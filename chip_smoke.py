@@ -97,14 +97,31 @@ H100) and the CUDA toolkit. Phases, each printing its own lines:
 15. reference checks on a small input, the CUDA path against the plain
     versions on the CPU; among them one float32 SGD(1.0) train step on
     the card against the CPU's and against float64 on the card, each max
-    pool's routes recorded, and a TF32 control step that must fail.
+    pool's routes recorded, and a TF32 control step that must fail;
+16. the experiment pipeline, through the port's CLIs in-process (the
+    shim's ``Experiment.run``) in a temporary experiment store, on
+    ``UnittestData(complementary=True)`` at 768x384 (5 classes):
+    ``training`` of the rgb and the depth expert (SimpleFCN, num_units 64,
+    batch norm, adam, batch 2, 20 steps on 4 frames, validated through
+    kernel A), ``evaluation`` of each run, ``bayes_fusion`` and
+    ``dirichlet_fusion`` (``use_pallas``, kernel B) ``fit_and_evaluate``
+    (its EM bounded to PIPELINE_EM_ITERATIONS iterations a class), then
+    BayesFusion(eval_experiments=...) and
+    DirichletFusion(measurement_exp=..., use_pallas=True) serve 4 frames
+    in bf16. Gates: every score's counts equal kernel A's plain version's,
+    every kernel B label a tie of its plain version's scores, both
+    kernels launched, every record (and the zip ``dump`` writes of it)
+    reads back, and the record-loaded fusions serve the labels of models
+    built from the same arrays. Printed: each run's seconds, ms/frame
+    served, each expert's and fusion's mean IoU.
 
 The launch counts are set to 0 just before phase 4 and read just after
 phase 7 (confusion and Dirichlet kernels), set to 0 just before and read
 just after phase 8 (stem conv), phase 10 (confusion kernel), the int8
 path of phase 11 (confusion and Dirichlet kernels, ``_int_mm``), phase
-13 (confusion kernel), and phase 14's serving path (confusion and
-Dirichlet kernels) and training path (confusion kernel). The
+13 (confusion kernel), phase 14's serving path (confusion and
+Dirichlet kernels) and training path (confusion kernel), and phase 16
+(confusion and Dirichlet kernels). The
 third-to-last line is the int8 product's JSON record (a library call,
 not a kernel of the port), the second-to-last the kernels' and the last
 ``{"ok": true, "device": {...}}``. Any fault exits non-zero with no
@@ -1493,13 +1510,13 @@ def adapnet_step_conditioning(card):
           f"{card}")
 
 
-def check_labels(out, what, count=SERVE_FRAMES):
+def check_labels(out, what, count=SERVE_FRAMES, num_classes=NUM_CLASSES):
     check(out.shape == (count, HEIGHT, WIDTH),
           f"{what}: output shape {out.shape}")
     check(out.dtype == np.int32, f"{what}: labels of type {out.dtype}, the "
           "reference's are int32")
-    check(out.min() >= 0 and out.max() < NUM_CLASSES,
-          f"{what}: labels outside [0, {NUM_CLASSES})")
+    check(out.min() >= 0 and out.max() < num_classes,
+          f"{what}: labels outside [0, {num_classes})")
 
 
 def reference_checks(experts, bayes, dirich):
@@ -1724,6 +1741,255 @@ def train_step_check(card_net, cpu_net, batch, train=True,
             f"{tf_routes}): fails, as it must")
 
 
+# phase 16, the experiment pipeline: the CLIs in-process, the flagship's
+# expert width on the complementary synthetic dataset (5 classes)
+PIPELINE_STEPS = 20
+PIPELINE_SERVE_FRAMES = 4
+# ``num_classes`` given: the dataset's class description says 4 without
+# it, whatever ``complementary`` makes
+PIPELINE_DATA = {"dataset": "unittest", "complementary": True,
+                 "num_classes": 5, "height": HEIGHT, "width": WIDTH,
+                 "num_train": 4, "num_measure": 4, "num_test": 8}
+PIPELINE_NET = {"num_units": NUM_UNITS, "batch_normalization": True,
+                "trainer": "adam", "learning_rate": 1e-3, "batchsize": 2,
+                "seed": 1}
+# the Dirichlet run's EM on the host, bounded as phase 14's: unbounded it
+# took 19.1 and 39.4 s of the phase's 54 and 71 s on these experts (an
+# H100 machine's host), and its parameters only feed kernel B and the
+# record checks
+PIPELINE_EM_ITERATIONS = ADAPNET_EM_ITERATIONS
+
+
+class KernelChecks:
+    """Each launch of kernels A and B on the pipeline held against its
+    plain version on the same inputs: every ``score`` through
+    ``score_checked`` (A's counts equal), and every Dirichlet label of B
+    a tie, within TIE_RTOL, of its plain version's best score."""
+
+    def __init__(self):
+        self.scores, self.labels = 0, 0
+
+    def __enter__(self):
+        from modular_semantic_segmentation_torch.models.estimator import \
+            Estimator
+        from modular_semantic_segmentation_torch.ops.cuda import dirichlet
+        self._score, self._label = Estimator.score, dirichlet.dirichlet_label
+        real_score, real_label = self._score, self._label
+
+        def score(net, data, *args, **kwargs):
+            self.scores += 1
+            return score_checked(lambda d: real_score(net, d, *args,
+                                                      **kwargs),
+                                 data, f"{type(net).__name__} score")
+
+        def label(probs, coeffs, bias):
+            got = real_label(probs, coeffs, bias)
+            scores = dirichlet.dirichlet_scores_plain(
+                torch.stack([p.float() for p in probs]), coeffs.to(got.device),
+                bias.to(got.device))
+            gap = tie_gaps(scores, got, scores.argmax(-1))
+            check(bool((gap <= TIE_RTOL).all()), "kernel B's labels are not "
+                  "ties of its plain version's scores")
+            self.labels += int(got.numel())
+            return got
+
+        Estimator.score, dirichlet.dirichlet_label = score, label
+        return self
+
+    def __exit__(self, *exc):
+        from modular_semantic_segmentation_torch.models.estimator import \
+            Estimator
+        from modular_semantic_segmentation_torch.ops.cuda import dirichlet
+        Estimator.score, dirichlet.dirichlet_label = self._score, self._label
+
+
+def run_cli(module, command, config, what, seconds):
+    """One CLI run in-process through the port's shim; returns its run
+    id, with its seconds on the host clock in ``seconds``."""
+    start = time.perf_counter()
+    module.ex.run(command, config_updates=config)
+    torch.cuda.synchronize()
+    seconds[what] = time.perf_counter() - start
+    return module.ex.current_run._id
+
+
+def check_records(store, runs):
+    """Every run's record reads back through ExperimentData as COMPLETED,
+    and so does the zip that ``dump`` writes of it (as ``<id>000.zip``,
+    its weights or Dirichlet parameters equal)."""
+    from modular_semantic_segmentation_torch.models.dirichlet_fusion import \
+        load_measurements
+    from modular_semantic_segmentation_torch.utils.experiment import \
+        ExperimentData
+    for what, run_id in runs.items():
+        record = ExperimentData(run_id).get_record()
+        check(record["status"] == "COMPLETED", f"{what} (run {run_id}): "
+              f"status {record['status']}")
+        zipped = ExperimentData(run_id).dump(
+            os.path.join(store, "experiments", f"{run_id}000"))
+        copy = ExperimentData(f"{run_id}000")
+        check(copy.get_record()["config"] == record["config"]
+              and copy.get_record()["info"].keys() == record["info"].keys(),
+              f"{what}: the zip {zipped} reads back another record")
+        if "weights" in " ".join(copy.artifacts):
+            with np.load(ExperimentData(run_id).get_weights()) as a, \
+                    np.load(copy.get_weights()) as b:
+                check(all(np.array_equal(a[k], b[k]) for k in a.files),
+                      f"{what}: the zip's weights differ")
+        if "counts.npz" in copy.artifacts:
+            a, b = (load_measurements(run_id),
+                    load_measurements(f"{run_id}000"))
+            check(all(np.array_equal(a[k], b[k]) for k in a),
+                  f"{what}: the zip's Dirichlet parameters differ")
+
+
+def pipeline_serving(runs, infos, card):
+    """BayesFusion from the evaluation runs' records and DirichletFusion
+    from the Dirichlet run's record serve PIPELINE_SERVE_FRAMES frames in
+    bf16, each against a model built from the same arrays by hand."""
+    from modular_semantic_segmentation_torch.datasets import get_dataset
+    from modular_semantic_segmentation_torch.experiments.evaluation import \
+        import_weights_into_network
+    from modular_semantic_segmentation_torch.models import get_model
+    data = get_dataset("unittest")(**{k: v for k, v in PIPELINE_DATA.items()
+                                      if k != "dataset"})
+    frames = [{m: blob[m] for m in MODALITIES}
+              for blob in list(data.get_testset())[:PIPELINE_SERVE_FRAMES]]
+    weights = {m: runs[f"training {m}"] for m in MODALITIES}
+    description = data.get_data_description(num_classes=data.num_classes)
+    common = {"num_units": NUM_UNITS, "batch_normalization": True,
+              "expert_model": "fcn", "prefixes": {m: m for m in MODALITIES},
+              "batchsize": 1, "compute_dtype": "bfloat16"}
+    kinds = {
+        "Bayes": ("bayes_fusion", {"eval_experiments": {
+            m: runs[f"evaluation {m}"] for m in MODALITIES}}, {
+            "confusion_matrices": {m: infos[f"evaluation {m}"][
+                "confusion_matrix"] for m in MODALITIES}}),
+        "Dirichlet": ("dirichlet_fusion", {
+            "measurement_exp": runs["dirichlet_fusion"],
+            "use_pallas": True}, {
+            "dirichlet_params": infos["dirichlet_fusion"][
+                "dirichlet_params"], "use_pallas": True})}
+    out = {}
+    for name, (kind, from_record, by_hand) in kinds.items():
+        served = []
+        for config in (from_record, by_hand):
+            net = get_model(kind)(data_description=description, **common,
+                                  **config)
+            import_weights_into_network(net, weights, warnings=False)
+            served.append(serve(net, frames))
+        (labels, ms), (want, _) = served
+        check_labels(labels, f"{name} from its record", PIPELINE_SERVE_FRAMES,
+                     data.num_classes)
+        check(np.array_equal(labels, want), f"{name} from its record serves "
+              "other labels than the model built from the same arrays")
+        out[name] = ms
+        print(f"pipeline {name} serving, from its record: {_runs(ms)} "
+              f"ms/frame over {PIPELINE_SERVE_FRAMES} frames at "
+              f"{HEIGHT}x{WIDTH}, bf16, unroll {UNROLL}; labels equal the "
+              f"model's built from the same arrays (host clock, "
+              f"synchronised; three runs after a warm-up) on {card}")
+    return out
+
+
+def experiment_pipeline(card):
+    """The paper's pipeline through the port's CLIs (phase 16): train the
+    rgb and depth experts and record them, evaluate each run, fit and
+    evaluate the Bayes and the Dirichlet (kernel B) fusion, then serve
+    both fusions loaded from their records, in a temporary experiment
+    store. Returns (launches of kernels A and B, checked scores)."""
+    import tempfile
+    from modular_semantic_segmentation_torch import settings
+    from modular_semantic_segmentation_torch.experiments import (
+        bayes_fusion, dirichlet_fusion, evaluation, training)
+    from modular_semantic_segmentation_torch.ops.cuda import (
+        confusion, dirichlet)
+    from modular_semantic_segmentation_torch.models.dirichlet_fusion import \
+        DirichletFusion
+    net = dict(PIPELINE_NET)
+    prefixes = {m: m for m in MODALITIES}
+    saved = settings.EXPERIMENT_STORAGE_FOLDER, settings.EXP_OUT
+    seconds, runs, infos = {}, {}, {}
+    from modular_semantic_segmentation_torch.ops import \
+        dirichlet_estimation as de
+    em, em_seconds = DirichletFusion._fit_sufficient_statistic, [0.0]
+    solver = de.find_dirichlet_priors
+
+    def timed_em(*args):
+        start = time.perf_counter()
+        em(*args)
+        em_seconds[0] += time.perf_counter() - start
+
+    def bounded(*args, **kwargs):
+        return solver(*args, **dict(kwargs, max_iter=PIPELINE_EM_ITERATIONS))
+
+    DirichletFusion._fit_sufficient_statistic = timed_em
+    de.find_dirichlet_priors = bounded
+    with tempfile.TemporaryDirectory() as store, KernelChecks() as checks:
+        settings.EXPERIMENT_STORAGE_FOLDER = os.path.join(store,
+                                                          "experiments")
+        settings.EXP_OUT = os.path.join(store, "exp")
+        confusion.KERNEL.launches = dirichlet.KERNEL.launches = 0
+        try:
+            for m in MODALITIES:
+                what = f"training {m}"
+                runs[what] = run_cli(training, "main", {
+                    "modelname": "simple_fcn", "device": "cuda",
+                    "num_iterations": PIPELINE_STEPS, "seed": 1,
+                    "starting_weights": False,
+                    "dataset": {"name": "unittest", **{
+                        k: v for k, v in PIPELINE_DATA.items()
+                        if k != "dataset"}},
+                    "net_config": dict(net, prefix=m, modality=m)},
+                    what, seconds)
+                infos[what] = training.ex.current_run.info
+            for m in MODALITIES:
+                what = f"evaluation {m}"
+                runs[what] = run_cli(evaluation, "main", {
+                    "modelname": "simple_fcn", "device": "cuda", "seed": 1,
+                    "starting_weights": runs[f"training {m}"],
+                    "evaluation_data": PIPELINE_DATA,
+                    "net_config": dict(net, prefix=m, modality=m)},
+                    what, seconds)
+                infos[what] = evaluation.ex.current_run.info
+            fusion_net = {"num_units": NUM_UNITS, "batch_normalization": True,
+                          "expert_model": "fcn", "prefixes": prefixes,
+                          "batchsize": 2}
+            weights = {m: runs[f"training {m}"] for m in MODALITIES}
+            for what, module, extra in (
+                    ("bayes_fusion", bayes_fusion, {}),
+                    ("dirichlet_fusion", dirichlet_fusion,
+                     {"use_pallas": True})):
+                runs[what] = run_cli(module, "main", {
+                    "device": "cuda", "seed": 1,
+                    "evaluation_data": PIPELINE_DATA,
+                    "starting_weights": weights,
+                    "net_config": dict(fusion_net, **extra)}, what, seconds)
+                infos[what] = module.ex.current_run.info
+            served = pipeline_serving(runs, infos, card)
+            launches = {"confusion": confusion.KERNEL.launches,
+                        "dirichlet": dirichlet.KERNEL.launches}
+            check_records(store, runs)
+        finally:
+            settings.EXPERIMENT_STORAGE_FOLDER, settings.EXP_OUT = saved
+            DirichletFusion._fit_sufficient_statistic = em
+            de.find_dirichlet_priors = solver
+    ious = {m: infos[f"evaluation {m}"]["measurements"] for m in MODALITIES}
+    ious["Bayes"] = infos["bayes_fusion"]["measurements"]["fusion"]
+    ious["Dirichlet"] = infos["dirichlet_fusion"]["measurements"]
+    print("pipeline runs (seconds, host clock): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in seconds.items())
+        + f"; of the Dirichlet run, EM {em_seconds[0]:.2f} (at most "
+        f"{PIPELINE_EM_ITERATIONS} iterations a class) on {card}")
+    print("pipeline mean IoU (test set; Dirichlet on its test half): "
+          + ", ".join(f"{k} {v['mean_IoU']:.4f}" for k, v in ious.items()))
+    print(f"pipeline kernel checks: {checks.scores} scores with kernel A's "
+          f"counts equal to its plain version's, {checks.labels} kernel B "
+          f"labels ties of its plain version's; records and their zips read"
+          f" back ({len(runs)} runs)")
+    return launches, served
+
+
 def main():
     times = {}
 
@@ -1880,6 +2146,16 @@ def main():
           adapnet_cms)
     timed("AdapNet step conditioning", adapnet_step_conditioning, smi_line)
     timed("reference checks", reference_checks, experts, bayes, dirich)
+    # ---- the experiment pipeline's path: its launch counts are set to 0
+    # and read inside experiment_pipeline
+    pipeline_launches, _ = timed("experiment pipeline", experiment_pipeline,
+                                 smi_line)
+    # ---- end of the experiment pipeline's path
+    print(f"experiment pipeline path: confusion launches "
+          f"{pipeline_launches['confusion']}, dirichlet launches "
+          f"{pipeline_launches['dirichlet']}")
+    check(all(pipeline_launches.values()), "the experiment pipeline did not "
+          f"launch every kernel of its path: {pipeline_launches}")
     for record in records:
         record["launches"] = launches[record["name"]]
         check(record["launches"] > 0,

@@ -20,8 +20,9 @@ class BayesFusion(FusionModel):
     Args:
         confusion_matrices: dict {modality: [K, K] matrix} measured on the
             measure set (rows = true class, as ``score`` returns them).
-            Loading them from past experiments (``eval_experiments``) needs
-            the experiment store, which is not ported yet.
+            Alternatively ``eval_experiments`` maps modalities to the ids
+            of past evaluation runs (of either package), whose stored
+            ``confusion_matrix`` is loaded.
         class_prior: 'data' | 'uniform' | float mixture weight.
     """
 
@@ -29,12 +30,18 @@ class BayesFusion(FusionModel):
         standard_config = {"class_prior": "data"}
         standard_config.update(config)
         if not confusion_matrices:
-            raise NotImplementedError(
-                "BayesFusion needs confusion_matrices: loading them from "
-                "eval_experiments is not ported yet")
+            from modular_semantic_segmentation_torch.utils.experiment import \
+                ExperimentData
+            confusion_matrices = {}
+            for key, exp_id in config["eval_experiments"].items():
+                stored = ExperimentData(exp_id).get_record()["info"][
+                    "confusion_matrix"]
+                if isinstance(stored, dict):  # un-decoded record form
+                    stored = stored["values"]
+                confusion_matrices[key] = stored
         # transposed, as the reference model does
         self.confusion_matrices = {
-            key: np.asarray(matrix, "float32").T
+            key: np.asarray(matrix).astype("float32").T
             for key, matrix in confusion_matrices.items()}
         self._tables = {}
         FusionModel.__init__(self, name="BayesFusion", output_dir=output_dir,

@@ -4,10 +4,11 @@
 Per (expert, class) a Dirichlet distribution over the expert's softmax
 simplex, fitted by EM on a held-out measure set (:meth:`fit`: the
 per-class sums of log expert probabilities on the device, the solvers of
-``ops/dirichlet_estimation.py`` on the host in float64) or passed in as
-``dirichlet_params``. With ``use_pallas`` the fused label comes from the
-one-pass kernel of ``ops/cuda/dirichlet.py`` (the name of the JAX option
-is kept); otherwise from the plain ``ops/fusion_math.dirichlet_fusion``.
+``ops/dirichlet_estimation.py`` on the host in float64), passed in as
+``dirichlet_params``, or loaded from a past run (``measurement_exp``).
+With ``use_pallas`` the fused label comes from the one-pass kernel of
+``ops/cuda/dirichlet.py`` (the name of the JAX option is kept); otherwise
+from the plain ``ops/fusion_math.dirichlet_fusion``.
 """
 
 from copy import deepcopy
@@ -24,6 +25,17 @@ from modular_semantic_segmentation_torch.models.fusion_base import (
 from modular_semantic_segmentation_torch.utils.data_io import iterate_batches
 
 
+def load_measurements(exp_id):
+    """The Dirichlet parameters of a past run (of either package): its
+    ``counts.npz`` artifact, {modality: [K, C], 'class_counts': [C]}. The
+    directory backend gives a path, the zip backend a file object; numpy
+    reads both."""
+    from modular_semantic_segmentation_torch.utils.experiment import \
+        ExperimentData
+    with np.load(ExperimentData(exp_id).get_artifact("counts.npz")) as npz:
+        return {k: npz[k] for k in npz.files}
+
+
 class DirichletFusion(FusionModel):
     """Mixture of CNN experts following the 'dirichlet mix' method.
 
@@ -37,8 +49,10 @@ class DirichletFusion(FusionModel):
             statistic) | 'fixedpoint' | 'meanprecision' (Minka fastfit).
         class_prior: 'data' | 'uniform' | float.
         dirichlet_params: {modality: [K, C] concentrations,
-            'class_counts': [C]}. Without it the model is in its
-            measurement phase and predicts zeros until :meth:`fit`.
+            'class_counts': [C]}, or ``measurement_exp``, the id of a past
+            run whose ``counts.npz`` holds them. Without either the model
+            is in its measurement phase and predicts zeros until
+            :meth:`fit`.
         use_pallas: fuse with the one-pass kernel.
     """
 
@@ -50,11 +64,9 @@ class DirichletFusion(FusionModel):
         if "prefixes" not in standard_config:
             standard_config["prefixes"] = {
                 m: m for m in standard_config.pop("modalities")}
-        if "measurement_exp" in config:
-            raise NotImplementedError(
-                "measurement_exp needs the experiment store, which is not "
-                "ported yet; pass dirichlet_params")
         measurements = standard_config.pop("dirichlet_params", None)
+        if "measurement_exp" in config:
+            measurements = load_measurements(config["measurement_exp"])
 
         modalities = list(standard_config["prefixes"].keys())
         if measurements is not None:

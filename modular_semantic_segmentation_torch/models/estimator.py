@@ -5,8 +5,9 @@ and ``compute_dtype``, ``_preprocess`` (``input_scaling`` and integer
 promotion), the train step and ``fit``, the eval step, ``predict``,
 ``score`` (partial batches padded with label -1), int8 post-training-
 quantized serving (``quantize_for_serving`` / ``dequantize_serving``),
-npz ``import_weights`` / ``export_weights`` and the ``checkpoint.pkl``
-files of ``save_checkpoint`` / ``load_weights``.
+npz ``import_weights`` / ``export_weights``, the ``checkpoint.pkl``
+files of ``save_checkpoint`` / ``load_weights``, and ``close`` with the
+context manager.
 
 Variables are a flat ``{tf_name: float32 tensor}`` store on ``device``,
 made from the subclass's variable specs and a numpy seed (config ``seed``,
@@ -402,16 +403,22 @@ class Estimator:
     # --------------------------------------------------------------- predict
     def predict(self, data, output_attr=None):
         """Per-pixel outputs for the input data (``output_attr`` picks a
-        test output other than 'prediction')."""
+        test output other than 'prediction'; a name that is no test output
+        but an attribute of the model gives that attribute per batch, as
+        in the JAX package)."""
         attr = output_attr or "prediction"
         outputs = []
         for batch, valid in iterate_batches(data, self.config["batchsize"]):
             out = self._forward(self._batch_to_device(batch))
-            if attr not in out:
+            if attr in out:
+                value = out[attr]
+            elif hasattr(self, attr):
+                value = getattr(self, attr)
+            else:
                 raise AttributeError(
                     f"unknown output_attr '{attr}'; this model produces "
                     f"{sorted(out)}")
-            outputs.append(to_numpy(out[attr])[:valid])
+            outputs.append(to_numpy(value)[:valid])
         return np.concatenate(outputs)
 
     # ----------------------------------------------------------------- score
@@ -511,14 +518,18 @@ class Estimator:
 
     def load_weights(self, filepath):
         """Restore a checkpoint: an ``.npz`` goes to ``import_weights``;
-        a ``checkpoint.pkl`` (this package's or the JAX package's) sets
-        the variables, the step and, where both have one, the optimizer
+        a ``checkpoint.pkl`` (this package's or the JAX package's; a path,
+        or a file object such as a zip record's artifact) sets the
+        variables, the step and, where both have one, the optimizer
         state."""
-        if filepath.endswith(".npz"):
+        if hasattr(filepath, "read"):
+            state = pickle.load(filepath)
+        elif filepath.endswith(".npz"):
             self.import_weights(filepath, warnings=False)
             return
-        with open(filepath, "rb") as f:
-            state = pickle.load(f)
+        else:
+            with open(filepath, "rb") as f:
+                state = pickle.load(f)
         self.variables = {
             k: torch.from_numpy(np.array(v, np.float32)).to(self.device)
             for k, v in state["variables"].items()}
@@ -543,3 +554,15 @@ class Estimator:
         with open(filepath, "wb") as f:
             pickle.dump(state, f)
         return filepath
+
+    # ----------------------------------------------------------- API parity
+    def close(self):
+        """Nothing to release; kept for the JAX package's API (its CLIs
+        build every model in a ``with`` block)."""
+        self._closed = True
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *args):
+        self.close()

@@ -20,6 +20,7 @@ setup(
     package_data={
         "modular_semantic_segmentation_tpu": ["native/Makefile",
                                               "native/*.cc"],
-        "modular_semantic_segmentation_torch": ["csrc/*.cu"],
+        "modular_semantic_segmentation_torch": [
+            "csrc/*.cu", "experiments/example_config.json"],
     },
 )

@@ -1,8 +1,9 @@
 """Guards of what the GPU machine needs from the port and chip_smoke.py.
 
 That machine has PyTorch, numpy and scipy but no JAX and none of the JAX
-package's host dependencies (cv2, sklearn, yaml, pandas, tqdm). The port
-and ``chip_smoke.py`` must import without them and without loading any
+package's host dependencies (cv2, sklearn, yaml, pandas, tqdm). The port,
+its experiment CLIs, datasets and settings among it, and
+``chip_smoke.py`` must import without them and without loading any
 module of the JAX package; ``chip_smoke.py`` must fail, and print no
 result line, where there is no CUDA card or no repository around it.
 """
@@ -51,6 +52,15 @@ def _forbidden(name):
 def test_port_imports_without_jax_and_its_host_deps():
     modules = _port_modules()
     assert len(modules) > 15
+    # the experiment layer and the host data layer among them
+    package = modular_semantic_segmentation_torch.__name__
+    for name in ("settings", "utils.experiment", "utils.sacred_shim",
+                 "datasets", "datasets.data_baseclass",
+                 "datasets.unittest_data", "experiments.training",
+                 "experiments.evaluation", "experiments.bayes_fusion",
+                 "experiments.dirichlet_fusion",
+                 "experiments.different_evaluation_parameters"):
+        assert f"{package}.{name}" in modules, name
     script = (
         "import sys\n"
         f"for name in {UNAVAILABLE!r}:\n"
@@ -66,6 +76,24 @@ def test_port_imports_without_jax_and_its_host_deps():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     assert out.stdout.startswith("ok")
+
+
+def test_importing_the_clis_writes_nothing(tmp_path):
+    """The CLI modules make their experiments and observers when they are
+    imported, and touch no file until a run starts."""
+    script = (
+        "from modular_semantic_segmentation_torch.experiments import (\n"
+        "    bayes_fusion, different_evaluation_parameters,\n"
+        "    dirichlet_fusion, evaluation, training)\n"
+        "print('ok')\n")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("EXPERIMENT_STORAGE_FOLDER", "EXP_OUT",
+                        "DATA_BASEPATH")}
+    env["HOME"] = str(tmp_path)
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert os.listdir(tmp_path) == []
 
 
 def test_port_sources_import_no_jax():

@@ -506,3 +506,109 @@ def test_max_pool_routes_ties_on_the_card_like_the_cpu(cuda):
         (grad,) = torch.autograd.grad((out * ct.to(device)).sum(), xd)
         grads.append(grad.cpu())
     assert torch.equal(grads[0], grads[1])
+
+
+def _training_run(device, store, monkeypatch):
+    """The port's training CLI, in-process, in the experiment store
+    ``store``: SimpleFCN rgb (num_units 4, batch norm off) on 32x32
+    UnittestData, 2 adam steps. Returns (record, summaries, weights)."""
+    import json
+    import os
+    from modular_semantic_segmentation_torch import settings
+    from modular_semantic_segmentation_torch.experiments import training
+    from modular_semantic_segmentation_torch.utils.experiment import \
+        ExperimentData
+    monkeypatch.setattr(settings, "EXPERIMENT_STORAGE_FOLDER",
+                        os.path.join(store, "experiments"))
+    monkeypatch.setattr(settings, "EXP_OUT", os.path.join(store, "exp"))
+    training.ex.run(config_updates={
+        "modelname": "simple_fcn", "num_iterations": 2, "seed": 3,
+        "starting_weights": False, "device": str(device),
+        "dataset": {"name": "unittest", "height": 32, "width": 32,
+                    "num_train": 6, "num_measure": 2, "num_test": 2},
+        "net_config": {"prefix": "rgb", "modality": "rgb", "num_units": 4,
+                       "batchsize": 2, "learning_rate": 1e-3,
+                       "batch_normalization": False}})
+    exp = ExperimentData(training.ex.current_run._id)
+    with open(exp.get_artifact("summaries.jsonl")) as f:
+        summaries = [json.loads(line) for line in f]
+    with np.load(exp.get_weights()) as npz:
+        weights = {k: npz[k] for k in npz.files}
+    return exp.get_record(), summaries, weights
+
+
+@pytest.mark.gpu
+def test_training_cli_on_the_card_matches_the_cpu(cuda, tmp_path,
+                                                  monkeypatch):
+    """The training CLI on the card and on the CPU, from the same seed:
+    both records complete with the same artifacts; the first step's loss
+    within rtol 1e-5; adam's first steps move each weight by about the
+    learning rate times the sign of its gradient, so the card's trained
+    weights may part from the CPU's only where a gradient is near 0 and
+    its sign flips: 99% of the entries within 1% of the learning rate,
+    all within two steps; the test set's counts sum alike."""
+    (card, card_sums, card_w), (cpu, cpu_sums, cpu_w) = (
+        _training_run(device, str(tmp_path / str(device)), monkeypatch)
+        for device in (cuda, "cpu"))
+    for record in (card, cpu):
+        assert record["status"] == "COMPLETED"
+    names = [sorted(a["name"] for a in r["artifacts"]
+                    if "events" not in a["name"]) for r in (card, cpu)]
+    assert names[0] == names[1]
+    np.testing.assert_allclose(card_sums[0]["loss"], cpu_sums[0]["loss"],
+                               rtol=1e-5)
+    assert sorted(card_w) == sorted(cpu_w)
+    deltas = np.concatenate([np.abs(card_w[k] - cpu_w[k]).ravel()
+                             for k in card_w])
+    assert np.mean(deltas <= 1e-5) >= 0.99
+    assert deltas.max() <= 2 * 2e-3
+    cms = [np.asarray(r["info"]["measurements"]["confusion_matrix"])
+           for r in (card, cpu)]
+    assert cms[0].sum() == cms[1].sum()
+
+
+@pytest.mark.gpu
+def test_dirichlet_from_measurement_exp_serves_on_the_card(
+        cuda, tmp_path, monkeypatch, deterministic_cudnn):
+    """DirichletFusion(measurement_exp=..., use_pallas=True) loads its
+    parameters from a run's counts.npz and serves on the card through
+    kernel B; its labels equal the same model's on the CPU up to argmax
+    ties of the CPU's scores (1e-5 relative)."""
+    import json
+    import os
+    from modular_semantic_segmentation_torch import settings
+    from modular_semantic_segmentation_torch.serving import InferenceServer
+    store = tmp_path / "experiments"
+    run_dir = store / "5"
+    os.makedirs(run_dir)
+    for name, content in (("run.json", {"_id": 5, "status": "COMPLETED",
+                                        "artifacts": [{"name":
+                                                       "counts.npz"}]}),
+                          ("config.json", {}), ("info.json", {})):
+        with open(run_dir / name, "w") as f:
+            json.dump(content, f)
+    rng = np.random.RandomState(4)
+    params = {m: rng.rand(6, 6) * 4 + 0.5 for m in ("rgb", "depth")}
+    params["class_counts"] = rng.randint(100, 1000, 6)
+    np.savez(run_dir / "counts.npz", **params)
+    monkeypatch.setattr(settings, "EXPERIMENT_STORAGE_FOLDER", str(store))
+    nets = {device: _small_fusion("dirichlet_mix", device, measurement_exp=5,
+                                  use_pallas=True)
+            for device in (cuda, "cpu")}
+    data = _frames()
+    frames = [{"rgb": data["rgb"][i], "depth": data["depth"][i]}
+              for i in range(3)]
+    before = dirichlet.KERNEL.launches
+    got = InferenceServer(nets[cuda], unroll=2).predict(frames)
+    assert dirichlet.KERNEL.launches - before == 4
+    cpu = nets["cpu"]
+    want = cpu.predict(data)
+    probs = torch.stack([torch.from_numpy(cpu.predict(
+        data, output_attr=f"{m}_norm_prob")).reshape(-1, 6)
+        for m in ("rgb", "depth")])
+    coeffs, bias = cpu._kernel_tables(6)
+    scores = dirichlet.dirichlet_scores_plain(probs, coeffs, bias)
+    got_t = torch.from_numpy(got.reshape(-1)).long()
+    gap = scores.max(-1).values - scores.gather(1, got_t[:, None])[:, 0]
+    assert bool((gap <= 1e-5 * scores.max(-1).values.abs()).all())
+    assert np.mean(got == want) >= 0.99

@@ -277,6 +277,31 @@ def test_forward_matches_jax(jax_nets, name):
     np.testing.assert_array_equal(got, jnet.predict(data))
 
 
+@pytest.mark.parametrize("name", ["fusion_fcn", "progressive_fcn"])
+def test_bf16_forward_matches_jax(name):
+    """The bfloat16 forward against JAX's bfloat16 forward, under the
+    near-tie rule of tests/test_torch_bf16_fusion.py: at most 2% of the
+    labels differ, each where the port's probability of JAX's label lies
+    within 2**-5 (relative) of its own label's."""
+    config = _config(name, compute_dtype="bfloat16")
+    jnet = jax_model(name)(**config)
+    tnet = get_model(name)(device="cpu", **config)
+    tnet.variables = from_jax_variables(
+        {k: np.asarray(v) for k, v in jnet.variables.items()}, device="cpu")
+    data = _frames(4)
+    prob = tnet.predict(data, output_attr="prob")
+    got, want = tnet.predict(data), jnet.predict(data)
+    assert got.dtype == np.int32
+    differ = got != want
+    assert differ.mean() <= 0.02
+    own = np.take_along_axis(prob, got[..., None], -1)[..., 0][differ]
+    other = np.take_along_axis(prob, want[..., None].astype(np.int64),
+                               -1)[..., 0][differ]
+    assert np.all(own - other <= 2.0 ** -5 * own)
+    _assert_scaled_close(prob, jnet.predict(data, output_attr="prob"),
+                         2.0 ** -5)
+
+
 def _pool_routes(tnet, batch, dtype, monkeypatch):
     """The argmax of every max-pool window in the port's train-mode
     forward with variables and convs in ``dtype``."""
