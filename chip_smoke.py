@@ -11,7 +11,8 @@ H100) and the CUDA toolkit. Phases, each printing its own lines:
  2. build: the three kernels of ``modular_semantic_segmentation_torch/
     csrc``, one nvcc each, in parallel; ptxas's registers, shared memory
     and spills for each, and the count of HGMMA (wgmma) instructions in
-    the stem conv's machine code, which must not be 0;
+    the stem conv's machine code, which must not be 0; then the host
+    library of the input pipeline (``native/host_ops.cc``, g++);
  3. kernel checks: the confusion kernel, both entry points, exact against
     its plain version, on uniform pairs (with -1 and out-of-range labels
     and predictions) and on one bin, timed with its yardstick
@@ -113,15 +114,38 @@ H100) and the CUDA toolkit. Phases, each printing its own lines:
     kernels launched, every record (and the zip ``dump`` writes of it)
     reads back, and the record-loaded fusions serve the labels of models
     built from the same arrays. Printed: each run's seconds, ms/frame
-    served, each expert's and fusion's mean IoU.
+    served, each expert's and fusion's mean IoU;
+17. the training input pipeline: 8 raw SYNTHIA frames of 1280x760 (RGB,
+    16-bit crude depth, 14-class crude labels that are a learnable
+    function of the rgb) written with the port's PNG writer into a
+    temporary tree, ``get_dataset('synthia')`` preprocessing them
+    (seconds per frame) and decoding and assembling batches of 4 with one
+    worker and with one per core (frames/s); the rgb SimpleFCN (num_units
+    64, batch norm, adam 1e-3, batch 4) trained 10 steps at 640x368 with
+    ``loader_workers`` and the prefetching loader, with the on-device
+    augmentation ``scale=(0.4, 0.7, 1.5), hflip=0.5, gamma=(0.4, 0.3,
+    1.2), crop=(1.0, 368)`` and without, validated on the measure set
+    every 5 steps and scored on the test set (kernel A, counts held
+    against its plain version); ms per step, peak memory, a traced
+    augmented step (idle share, top kernels; trace in
+    ``traces/input_pipeline/``), fit's loop by hand (the wait for each
+    batch beside the step: prefetched with one worker per core and with
+    one, and assembled in the loop without the prefetcher), and the
+    device augmentation of a batch of 4 on the separable path and on the
+    general one (rotate and shear).
+    Gates: finite losses, augmented labels in [-1, K), the card's warps
+    equal the CPU's for the same maps (nearest exact, bilinear uint8
+    exact except rounding ties, counted), the prefetcher re-raises an
+    exception injected into its producer, and kernel A's launches equal
+    the phase's validation and score batches.
 
 The launch counts are set to 0 just before phase 4 and read just after
 phase 7 (confusion and Dirichlet kernels), set to 0 just before and read
 just after phase 8 (stem conv), phase 10 (confusion kernel), the int8
 path of phase 11 (confusion and Dirichlet kernels, ``_int_mm``), phase
 13 (confusion kernel), phase 14's serving path (confusion and
-Dirichlet kernels) and training path (confusion kernel), and phase 16
-(confusion and Dirichlet kernels). The
+Dirichlet kernels) and training path (confusion kernel), phase 16
+(confusion and Dirichlet kernels) and phase 17 (confusion kernel). The
 third-to-last line is the int8 product's JSON record (a library call,
 not a kernel of the port), the second-to-last the kernels' and the last
 ``{"ok": true, "device": {...}}``. Any fault exits non-zero with no
@@ -242,11 +266,16 @@ def ptxas_usage(log):
 
 
 def phase_build():
+    from modular_semantic_segmentation_torch.datasets import native_backend
     from modular_semantic_segmentation_torch.ops.cuda import build
     start = time.perf_counter()
     build.build()
     print(f"build: {', '.join(build.KERNEL_SOURCES)} with nvcc in "
           f"{time.perf_counter() - start:.1f} s")
+    start = time.perf_counter()
+    native_backend.build()
+    print(f"build: the host library native/host_ops.cc with the host's C++ "
+          f"compiler in {time.perf_counter() - start:.1f} s")
     for name in build.KERNEL_SOURCES:
         for function, usage in ptxas_usage(build.build_log(name)):
             print(f"ptxas {function}: {usage}")
@@ -341,9 +370,14 @@ def check_confusion(card, kind, preds, labels,
 def measure_step_launches(expert, frames, card):
     """Device kernels and memsets of ``expert.score`` over the frames
     against those of its forward passes alone (torch.profiler), per
-    scored batch; and kernel A's share of the score's device time."""
+    scored batch; and kernel A's share of the score's device time. Kernel
+    A's launches are counted by its wrapper; a trace that holds fewer
+    kernel launches than the forward passes' is incomplete (a trace on an
+    H100 once held a fifth of the score's kernels) and is reported as not
+    measured."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from modular_semantic_segmentation_torch.ops.cuda import confusion
     from modular_semantic_segmentation_torch.utils.data_io import \
         iterate_batches
 
@@ -362,7 +396,11 @@ def measure_step_launches(expert, frames, card):
             expert._forward(expert._batch_to_device(batch))
 
     batches = len(frames["labels"]) // expert.config["batchsize"]
+    before = confusion.KERNEL.launches
     scored = kernels(lambda: expert.score(frames))
+    a_launches = confusion.KERNEL.launches - before
+    check(a_launches == batches, f"the measure step launched kernel A "
+          f"{a_launches} times for {batches} batches")
     forward = kernels(forwards)
     extra = {key: count - forward.get(key, (0, 0))[0]
              for key, (count, _) in scored.items()}
@@ -370,9 +408,12 @@ def measure_step_launches(expert, frames, card):
     a_count, a_us = scored.get(next(
         (key for key in scored if "confusion_kernel" in key), ""), (0, 0))
     device_us = sum(us for _, us in scored.values())
-    if device_us <= 0:
-        print("measure step launches: not measured (no device time "
-              "recorded)")
+    traced = sum(n for n, _ in scored.values())
+    if device_us <= 0 or traced < sum(n for n, _ in forward.values()):
+        print(f"measure step, {expert.modality} expert: kernel A launched "
+              f"{a_launches} times for {batches} scored batches (its "
+              f"counter); the trace's breakdown not measured ({traced} "
+              f"kernel launches traced, fewer than the forward passes')")
         return
     print(f"measure step, {expert.modality} expert, {batches} scored "
           f"batches (torch.profiler): {a_count / batches:.2f} confusion "
@@ -383,7 +424,7 @@ def measure_step_launches(expert, frames, card):
           + f"); kernel A {a_us / 1e3 / batches:.4f} ms of "
           f"{device_us / 1e3 / batches:.3f} ms device time a batch "
           f"({100 * a_us / device_us:.3f}%) on {card}")
-    check(a_count == batches, f"the measure step launched kernel A "
+    check(a_count == batches, f"the measure step's trace holds kernel A "
           f"{a_count} times for {batches} batches")
 
 
@@ -1990,6 +2031,309 @@ def experiment_pipeline(card):
     return launches, served
 
 
+# phase 17, the training input pipeline: a raw SYNTHIA sequence written by
+# the port's PNG writer, preprocessed and read by the port's driver, and
+# the rgb expert trained on it at 640x368 full width, batch 4, as
+# experiments/example_config.yaml sets it, with the on-device augmentation
+# of experiments/timing.py:348-350 (its crop side the frame's height, so
+# the square crop lies inside the frame)
+INPUT_SEQUENCE = "SYNTHIA-SEQS-04-DAWN"
+INPUT_FRAMES = 8
+INPUT_RAW = (760, 1280)
+INPUT_BLOCK = 64
+INPUT_STEPS = 10
+INPUT_BATCH = 4
+INPUT_ASSEMBLY_BATCHES = 6
+INPUT_AUGMENTATION = {"scale": (0.4, 0.7, 1.5), "hflip": 0.5,
+                      "gamma": (0.4, 0.3, 1.2), "crop": (1.0, 368)}
+INPUT_NET = {"num_units": NUM_UNITS, "batch_normalization": True,
+             "trainer": "adam", "learning_rate": 1e-3,
+             "batchsize": INPUT_BATCH}
+# the general warp path (rotation and shear) against the separable one
+INPUT_GENERAL = {"rotate": (1.0, -10, 10), "shear": (1.0, 0.05, 0.1),
+                 "crop": (1.0, 368)}
+INPUT_WARP_TIE = 1e-3
+
+
+def write_synthia_sequence(base):
+    """INPUT_FRAMES raw frames of 1280x760 in SYNTHIA's layout (RGB,
+    Depth, GT/LABELS under Stereo_Right/Omni_F), written with the port's
+    PNG writer: 14-class labels that are the red channel of 64x64 blocks
+    quantized (32x32 after the 2x downsampling), in the crude format's
+    first channel with decoys in the others; rgb those blocks with noise;
+    16-bit depth in the first channel of a 16-bit colour file."""
+    from modular_semantic_segmentation_torch.datasets import image_io
+    rng = np.random.RandomState(17)
+    h, w = INPUT_RAW
+    root = os.path.join(base, INPUT_SEQUENCE)
+    for i in range(INPUT_FRAMES):
+        blocks = rng.rand(h // INPUT_BLOCK + 1, w // INPUT_BLOCK + 1, 3)
+        big = np.repeat(np.repeat(blocks, INPUT_BLOCK, 0), INPUT_BLOCK,
+                        1)[:h, :w]
+        bgr = (big * 247 + rng.rand(h, w, 3) * 8).astype(np.uint8)
+        labels = np.minimum((big[..., 2] * NUM_CLASSES).astype(np.uint8),
+                            NUM_CLASSES - 1)
+        crude = np.stack([labels, np.full_like(labels, 200),
+                          np.full_like(labels, 100)], -1)
+        depth = np.stack([rng.randint(0, 60000, (h, w))] * 3,
+                         -1).astype(np.uint16)
+        for sub, image in (("RGB", bgr), ("Depth", depth),
+                           ("GT/LABELS", crude)):
+            folder = os.path.join(root, sub, "Stereo_Right", "Omni_F")
+            os.makedirs(folder, exist_ok=True)
+            image_io.imwrite(os.path.join(folder, f"{i:06d}.png"), image)
+
+
+def assembly_rate(data, workers):
+    """Decode + assembly frames/s of the trainset's batches with a pool of
+    ``workers`` (host clock, after one warm-up batch)."""
+    batches = data.get_trainset().batches(INPUT_BATCH, shuffle=True,
+                                          repeat=True, seed=0,
+                                          workers=workers)
+    next(batches)
+    start = time.perf_counter()
+    for _ in range(INPUT_ASSEMBLY_BATCHES):
+        next(batches)
+    seconds = time.perf_counter() - start
+    batches.close()
+    return INPUT_ASSEMBLY_BATCHES * INPUT_BATCH / seconds
+
+
+def loader_wait(net, data, workers, prefetch):
+    """``fit``'s loop by hand for INPUT_STEPS steps: the host clock of the
+    wait for each batch (``next``) and of each synchronised train step.
+    With ``prefetch`` the batches come from ``to_device_prefetched`` over
+    a pool of ``workers``; without it they are assembled in the loop and
+    copied inside the step, as before the loader. Returns the medians
+    after TRAIN_WARMUP steps: (wait ms, step ms)."""
+    from modular_semantic_segmentation_torch.utils.data_io import (
+        to_device_prefetched, training_batches)
+    batches = training_batches(data.get_trainset(), INPUT_BATCH, seed=0,
+                               workers=workers)
+    if prefetch:
+        batches = to_device_prefetched(batches, "cuda")
+    waits, steps = [], []
+    variables, opt_state = net.variables, net.opt_state
+    try:
+        for _ in range(INPUT_STEPS):
+            start = time.perf_counter()
+            batch = next(batches)
+            waits.append((time.perf_counter() - start) * 1e3)
+            start = time.perf_counter()
+            variables, opt_state, _ = net._train_step(variables, opt_state,
+                                                      batch)
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter() - start) * 1e3)
+    finally:
+        batches.close()
+    return (statistics.median(waits[TRAIN_WARMUP:]),
+            statistics.median(steps[TRAIN_WARMUP:]))
+
+
+def warp_card_against_cpu(batch):
+    """``_warp`` on the card against the CPU for the same maps: the
+    separable and the general path, order 0 (labels) exact, order 1 on
+    uint8 rgb exact except rounding ties. Returns the ties' count."""
+    from modular_semantic_segmentation_torch.ops import device_augment as da
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rgb = batch["rgb"].clamp(0, 255).round().to(torch.uint8)
+    h, w = rgb.shape[1:3]
+    ties = 0
+    for config, aligned in ((INPUT_AUGMENTATION, True),
+                            (INPUT_GENERAL, False)):
+        geometry = {k: v for k, v in config.items() if k in (
+            "scale", "crop", "hflip", "vflip", "rotate", "shear")}
+        u = da.draw_uniforms(gen, rgb.shape[0], da.GEOMETRY_DRAWS)
+        side = config["crop"][1]
+        m = da.geometry_from_draws(u, h, w, side, side, **geometry)
+        m_cpu = m.cpu()
+        labels = da._warp(batch["labels"], m, side, side, 0, aligned)
+        want = da._warp(batch["labels"].cpu(), m_cpu, side, side, 0,
+                        aligned)
+        check(torch.equal(labels.cpu(), want), "the card's nearest warp "
+              f"differs from the CPU's (axis_aligned={aligned})")
+        got = da._warp(rgb, m, side, side, 1, aligned).cpu().int()
+        want = da._warp(rgb.cpu(), m_cpu, side, side, 1, aligned).int()
+        exact = da._warp(rgb.cpu().float(), m_cpu, side, side, 1, aligned)
+        tie = ((exact - exact.floor()) - 0.5).abs() < INPUT_WARP_TIE
+        diff = (got - want).abs()
+        check(int(diff.max()) <= 1 and not bool(diff[~tie].any()),
+              f"the card's bilinear warp differs from the CPU's off ties "
+              f"(axis_aligned={aligned})")
+        ties += int((diff > 0).sum())
+    return ties
+
+
+def warp_path_ms(batch, config):
+    """Device ms of ``augment_batch`` over a batch of INPUT_BATCH on the
+    card (CUDA events, mean of 20 after 3 warm-ups, L2 flushed)."""
+    from modular_semantic_segmentation_torch.ops import device_augment as da
+    from modular_semantic_segmentation_torch.utils.profiling import cold_ms
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    return cold_ms(lambda: da.augment_batch(gen, batch, **config))
+
+
+def augmented_step_profile(net, batch):
+    """torch.profiler over one augmented train step (after the timed fit):
+    device busy and idle share, top kernels. The trace is written to
+    traces/input_pipeline/trace.json."""
+    from torch.autograd import DeviceType
+    from modular_semantic_segmentation_torch.utils.profiling import trace
+    net._train_step(net.variables, net.opt_state, batch)
+    torch.cuda.synchronize()
+    with trace(os.path.join(TRACE_DIR, "input_pipeline")) as prof:
+        start = time.perf_counter()
+        net._train_step(net.variables, net.opt_state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - start) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    if not kernels:
+        print("augmented train step profile: not measured (no device time "
+              "recorded)")
+        return
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    print(f"augmented train step profile, traced: device busy {busy:.3f} ms"
+          f" of {wall:.3f} ms wall, idle share {1 - busy / wall:.2f}, "
+          f"{sum(e.count for e in kernels)} kernel launches; top kernels "
+          "(ms, launches, name):")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"  {e.self_device_time_total / 1e3:8.3f} x{e.count:4d}  "
+              f"{e.key[:100]}")
+
+
+def prefetcher_reraises():
+    """An exception injected into the prefetcher's producer reaches the
+    consumer, after the batches before it."""
+    from modular_semantic_segmentation_torch.utils.data_io import \
+        to_device_prefetched
+
+    class Injected(Exception):
+        pass
+
+    def producer():
+        for i in range(3):
+            yield {"x": np.full((2, 4), i, np.float32)}
+        raise Injected("injected into the producer")
+
+    seen = []
+    try:
+        for batch in to_device_prefetched(producer(), "cuda"):
+            check(batch["x"].is_cuda, "a prefetched batch is not on the card")
+            seen.append(float(batch["x"][0, 0]))
+    except Injected:
+        check(seen == [0.0, 1.0, 2.0], f"the prefetcher gave {seen} before "
+              "the producer's exception")
+        return
+    raise SmokeFailure("the prefetcher ended without the producer's "
+                       "exception")
+
+
+def input_pipeline(card):
+    """Phase 17: the training input pipeline (see INPUT_* above). Returns
+    kernel A's launches on the phase's fits and scores."""
+    import tempfile
+    from modular_semantic_segmentation_torch.datasets import get_dataset
+    from modular_semantic_segmentation_torch.models import get_model
+    from modular_semantic_segmentation_torch.ops import device_augment as da
+    from modular_semantic_segmentation_torch.ops.cuda import confusion
+    with tempfile.TemporaryDirectory() as base:
+        start = time.perf_counter()
+        write_synthia_sequence(base)
+        written = time.perf_counter() - start
+        start = time.perf_counter()
+        data = get_dataset("synthia")(seqs=[INPUT_SEQUENCE], base_path=base)
+        preprocessed = time.perf_counter() - start
+        cores = os.cpu_count()
+        rates = {w: assembly_rate(data, w) for w in (1, cores)}
+        print(f"input pipeline: {INPUT_FRAMES} raw 1280x760 frames written "
+              f"in {written:.2f} s; SYNTHIA preprocessing "
+              f"{preprocessed / INPUT_FRAMES:.3f} s per frame; decode + "
+              f"assembly of 640x368 batches of {INPUT_BATCH}: "
+              f"{rates[1]:.1f} frames/s with 1 worker, "
+              f"{rates[cores]:.1f} frames/s with {cores} (host clock) on "
+              f"{card}")
+        description = data.get_data_description()
+        measure, test = data.get_measureset(), data.get_testset()
+        per_score = -(-len(measure) // INPUT_BATCH)
+        per_test = -(-len(test) // INPUT_BATCH)
+        confusion.KERNEL.launches = 0
+        expected = 0
+        runs = {}
+        for name, augmentation in (("augmented", INPUT_AUGMENTATION),
+                                   ("plain", None)):
+            config = dict(INPUT_NET, loader_workers=cores)
+            if augmentation:
+                config["device_augmentation"] = augmentation
+            net = get_model("simple_fcn")(
+                prefix="rgb", modality="rgb", data_description=description,
+                **config)
+            times, losses, peak, validations = train_run(
+                net, data.get_trainset(), INPUT_STEPS, measure)
+            check(np.isfinite(losses).all(),
+                  f"{name} training: non-finite loss {losses}")
+            measures, counts = score_checked(net.score, test, "test score")
+            check(np.isfinite(measures["total_accuracy"]),
+                  f"{name} training: non-finite test accuracy")
+            expected += len(validations) * per_score + per_test
+            steady = times[TRAIN_WARMUP:]
+            print(f"input pipeline training, {name}: "
+                  f"{statistics.median(steady):.3f} ms per train step "
+                  f"(median of {len(steady)} after {TRAIN_WARMUP} warm-up "
+                  f"steps; min {min(steady):.3f}, max {max(steady):.3f}; "
+                  f"host clock, synchronised), batch {INPUT_BATCH} of "
+                  f"{'368x368 crops' if augmentation else '368x640 frames'},"
+                  f" {cores} loader workers, prefetched; peak memory "
+                  f"{peak / 2**30:.3f} GiB; losses "
+                  + " ".join(f"{x:.4f}" for x in losses)
+                  + f"; test mean IoU {measures['mean_IoU']:.4f} on {card}")
+            runs[name] = net
+        launches = confusion.KERNEL.launches
+        check(launches == expected, f"kernel A launched {launches} times on "
+              f"the phase's fits and scores, expected {expected} "
+              "(validation and score batches)")
+
+        shares = []
+        for workers, prefetch in ((cores, True), (1, True), (1, False)):
+            wait, step = loader_wait(runs["augmented"], data, workers,
+                                     prefetch)
+            shares.append(f"{'prefetched, ' if prefetch else 'in the loop, '}"
+                          f"{workers} worker{'s' if workers > 1 else ''}: "
+                          f"wait {wait:.3f} ms, step {step:.3f} ms, host "
+                          f"share {wait / (wait + step):.3f}")
+        print("input pipeline, fit's loop by hand, augmented (medians, host "
+              "clock, synchronised): " + "; ".join(shares) + f" on {card}")
+
+        net = runs["augmented"]
+        batch = next(data.get_trainset().batches(INPUT_BATCH, shuffle=True,
+                                                 seed=3))
+        batch = net._batch_to_device(batch)
+        augmented = da.augment_batch(net._generator, batch,
+                                     **INPUT_AUGMENTATION)
+        labels = augmented["labels"]
+        check(int(labels.min()) >= -1 and int(labels.max()) < NUM_CLASSES,
+              "augmented labels outside [-1, K)")
+        check(tuple(labels.shape) == (INPUT_BATCH, 368, 368),
+              f"augmented labels of shape {tuple(labels.shape)}")
+        augmented_step_profile(net, batch)
+        ms = {name: warp_path_ms(batch, config) for name, config in (
+            ("separable", INPUT_AUGMENTATION), ("general", INPUT_GENERAL))}
+        print(f"device augmentation of a batch of {INPUT_BATCH} 368x640 "
+              f"frames (rgb, depth, labels) to 368x368: separable path "
+              f"{ms['separable']:.4f} ms, general path (rotate, shear) "
+              f"{ms['general']:.4f} ms (CUDA events, L2 flushed) on {card}")
+        ties = warp_card_against_cpu(batch)
+        print(f"device augmentation card against CPU: nearest warps equal, "
+              f"bilinear uint8 warps equal except {ties} rounding ties")
+        prefetcher_reraises()
+        print("prefetcher: the producer's injected exception reached the "
+              "consumer")
+    print(f"input pipeline path: confusion launches {launches} "
+          f"(validation and score batches)")
+    return launches
+
+
 def main():
     times = {}
 
@@ -2156,6 +2500,12 @@ def main():
           f"{pipeline_launches['dirichlet']}")
     check(all(pipeline_launches.values()), "the experiment pipeline did not "
           f"launch every kernel of its path: {pipeline_launches}")
+    # ---- the training input pipeline's path: kernel A's count is set to 0
+    # and read inside input_pipeline
+    input_launches = timed("input pipeline", input_pipeline, smi_line)
+    # ---- end of the training input pipeline's path
+    check(input_launches > 0, "the input pipeline launched no confusion "
+          "kernel")
     for record in records:
         record["launches"] = launches[record["name"]]
         check(record["launches"] > 0,

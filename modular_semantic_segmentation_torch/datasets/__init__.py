@@ -1,31 +1,32 @@
 """Dataset registry (the port's copy of the JAX package's
 ``datasets/__init__.py``), with lazy class exports.
 
-Only the synthetic in-repo dataset ``unittest`` is ported; every other name
-of the JAX package's registry raises ``NotImplementedError`` (ROADMAP.md,
-section 1, item A3), and an unknown name the JAX package's
-``UserWarning``.
+Every name of the JAX package's registry resolves to the port's driver,
+except ``pascalvoc`` (its JPEG frames need a decoder without cv2) and
+``add_random_objects`` (it goes with the ``uncertainty_eval`` CLI), which
+raise ``NotImplementedError`` (ROADMAP.md, section 1, item A3); an
+unknown name raises the JAX package's ``UserWarning``.
 """
 
 import importlib
 
 _REGISTRY = {
+    "synthia": ("synthia", "Synthia"),
+    "synthia_cityscapes": ("synthia_cityscapes", "SynthiaCityscapes"),
+    "cityscapes": ("cityscapes", "Cityscapes"),
+    "cityscapes_c": ("cityscapes", "Cityscapes"),
+    "cityscapes_a": ("cityscapes_a", "CityscapesA"),
+    "cityscapes_b": ("cityscapes_b", "CityscapesB"),
+    "synthia_rand": ("synthia_rand", "SynthiaRand"),
+    "raw_synthia": ("raw_synthia", "RawSynthia"),
+    "toydata": ("toydata", "ToyData"),
+    "mixeddata": ("mixed_data", "MixedData"),
     "unittest": ("unittest_data", "UnittestData"),
 }
 
 #: the JAX package's other datasets, by registry name and class name
 _NOT_PORTED = {
-    "synthia": "Synthia",
-    "synthia_cityscapes": "SynthiaCityscapes",
-    "cityscapes": "Cityscapes",
-    "cityscapes_c": "Cityscapes",
-    "cityscapes_a": "CityscapesA",
-    "cityscapes_b": "CityscapesB",
-    "synthia_rand": "SynthiaRand",
-    "raw_synthia": "RawSynthia",
     "pascalvoc": "PascalVOC",
-    "toydata": "ToyData",
-    "mixeddata": "MixedData",
     "add_random_objects": "AddRandomObjects",
 }
 
@@ -51,8 +52,8 @@ _CLASS_NAMES = {
 
 
 def __getattr__(name):
-    """Lazy class exports (PEP 562): ``from ...datasets import
-    UnittestData`` without importing every dataset module up front."""
+    """Lazy class exports (PEP 562): ``from ...datasets import Synthia``
+    without importing every dataset module up front."""
     if name in _CLASS_NAMES:
         return get_dataset(_CLASS_NAMES[name])
     raise AttributeError(name)

@@ -8,18 +8,20 @@ usable before a dataset exists; per-modality blob dicts cropped to
 multiples of 16. The accessors return a :class:`DataSource`, whose
 ``batches`` method ``fit``, ``score`` and ``predict`` take as they are.
 
-Differences from the JAX package: sklearn's ``train_test_split`` is
-:func:`train_test_split` here (the same indices); uint8 frames become
-float32 through numpy's ``astype`` where the JAX package may take its
-native library (the same values); the ``workers`` thread pool of
-``batches`` is not ported (ROADMAP.md, section 1, item A8).
+uint8 frames become float32 in one pass of the native library's pack
+over the whole batch, and ``batches(workers=n)`` assembles blobs in a
+pool of ``n`` threads, as in the JAX package. The difference from it:
+sklearn's ``train_test_split`` is :func:`train_test_split` here (the same
+indices).
 """
 
 import math
 import random
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from modular_semantic_segmentation_torch.datasets import native_backend
 from modular_semantic_segmentation_torch.datasets.augmentation import \
     crop_multiple
 from modular_semantic_segmentation_torch.datasets.wrapper import DataWrapper
@@ -98,6 +100,9 @@ class DataSource:
                 batch[m] = stacked.astype(dtype)
             elif stacked.dtype == np.uint8 and self.compact_transfer:
                 batch[m] = stacked
+            elif stacked.dtype == np.uint8:
+                # one native pass over the whole batch
+                batch[m] = native_backend.pack_normalize(stacked)
             else:
                 batch[m] = stacked.astype(np.float32)
         return batch
@@ -106,14 +111,42 @@ class DataSource:
                 workers=None):
         """Yield stacked batch dicts; ``shuffle`` permutes the items each
         epoch with ``RandomState(seed)``, ``repeat`` cycles forever and
-        tops the last batch of an epoch up from the start."""
-        if workers and workers > 1:
-            raise NotImplementedError(
-                "the workers pool of DataSource.batches is not ported yet "
-                "(ROADMAP.md, section 1, item A8)")
+        tops the last batch of an epoch up from the start.
+
+        ``workers > 1`` assembles the blobs (decode, augment, crop) in a
+        pool of that many threads, two batches in flight: the PNG inflate,
+        numpy and the native ops release the GIL, so assembly runs on
+        several host cores while the device computes. The batches are the
+        sequential ones; but an augmentation draws from the shared
+        ``random`` and numpy generators, so with workers which blob takes
+        which draw is not fixed.
+        """
         rng = np.random.RandomState(seed)
-        for idxs in self._batch_indices(batchsize, shuffle, repeat, rng):
-            yield self.stack([self.get_blob(i) for i in idxs])
+        indices = self._batch_indices(batchsize, shuffle, repeat, rng)
+        if workers and workers > 1:
+            return self._batches_pooled(indices, workers)
+        return (self.stack([self.get_blob(i) for i in idxs])
+                for idxs in indices)
+
+    def _batches_pooled(self, indices, workers):
+        with ThreadPoolExecutor(max_workers=workers) as pool:
+            pending = []
+            try:
+                for idxs in indices:
+                    pending.append([pool.submit(self.get_blob, i)
+                                    for i in idxs])
+                    # two batches in flight: one being consumed, one
+                    # assembling behind it
+                    if len(pending) > 2:
+                        yield self.stack([f.result()
+                                          for f in pending.pop(0)])
+                while pending:
+                    yield self.stack([f.result() for f in pending.pop(0)])
+            finally:
+                # a consumer that stops early leaves futures behind
+                for futures in pending:
+                    for f in futures:
+                        f.cancel()
 
     def _batch_indices(self, batchsize, shuffle, repeat, rng):
         while True:

@@ -8,11 +8,12 @@ package's ``experiments/evaluation.py``).
 
 The run's info holds the measurements and the test set's confusion matrix
 (``BayesFusion(eval_experiments=...)`` loads it); ``quantized_serving``
-scores through int8 serving and records the scales. ``all_synthia`` waits
-for the synthia dataset (ROADMAP.md, section 1, item A3).
+scores through int8 serving and records the scales. ``all_synthia``
+scores the network on each SYNTHIA sequence in turn.
 """
 
 import os
+from copy import deepcopy
 from sys import stdout
 
 from modular_semantic_segmentation_torch import settings
@@ -42,6 +43,25 @@ def evaluate(net, data, print_results=True):
                           measures["IoU"][label]))
         stdout.flush()
     return measures, confusion_matrix
+
+
+def evaluate_on_all_synthia_seqs(net, data_config):
+    """Score the network on each SYNTHIA sequence of
+    ``AVAILABLE_SEQUENCES`` in turn (the dataset config with ``seqs`` set
+    to that sequence alone); returns {sequence: measures}."""
+    from modular_semantic_segmentation_torch.datasets.synthia import \
+        AVAILABLE_SEQUENCES
+    adapted_config = deepcopy(data_config)
+    all_measurements = {}
+    for sequence in AVAILABLE_SEQUENCES:
+        adapted_config["seqs"] = [sequence]
+        data = load_data(adapted_config)
+        measurements, _ = evaluate(net, data, print_results=False)
+        print("Evaluated network on {}: {:.2f} IoU".format(
+            sequence, measurements["mean_IoU"]))
+        all_measurements[sequence] = measurements
+    stdout.flush()
+    return all_measurements
 
 
 def import_weights_into_network(net, starting_weights, **kwargs):
@@ -111,10 +131,14 @@ def also_load_config(modelname, net_config, evaluation_data,
 @ex.command
 def all_synthia(modelname, net_config, evaluation_data, starting_weights,
                 _run, device="cuda"):
-    """Evaluation on every synthia sequence, one at a time."""
-    raise NotImplementedError(
-        "all_synthia needs the synthia dataset, which is not ported yet "
-        "(ROADMAP.md, section 1, items A3 and A5)")
+    """Evaluation on every SYNTHIA sequence, one at a time; the run's info
+    holds {sequence: measurements}."""
+    model = get_model(modelname)
+    with model(data_description=data_description(evaluation_data),
+               device=device, **net_config) as net:
+        import_weights_into_network(net, starting_weights)
+        measurements = evaluate_on_all_synthia_seqs(net, evaluation_data)
+        _run.info["measurements"] = measurements
 
 
 @ex.main

@@ -31,6 +31,7 @@ An eval-only model (``custom_training=True``) needs no _train_outputs.
 """
 
 import json
+import os
 import pickle
 import time
 from os import path
@@ -39,6 +40,7 @@ import numpy as np
 import torch
 
 from modular_semantic_segmentation_torch.models import params as params_lib
+from modular_semantic_segmentation_torch.ops import device_augment
 from modular_semantic_segmentation_torch.ops import metrics as metrics_lib
 from modular_semantic_segmentation_torch.ops import optimizers
 from modular_semantic_segmentation_torch.ops.init import (
@@ -48,7 +50,8 @@ from modular_semantic_segmentation_torch.ops.losses import one_hot
 from modular_semantic_segmentation_torch.ops.variables import (
     Ctx, resolve_device, resolve_dtype, split_trainable)
 from modular_semantic_segmentation_torch.utils.data_io import (
-    iterate_batches, training_batches)
+    iterate_batches, prefetch_eval_batches, to_device_prefetched,
+    training_batches)
 from modular_semantic_segmentation_torch.utils.tfevents import EventWriter
 
 
@@ -111,7 +114,11 @@ class Estimator:
         config: the JAX package's keys, among them ``seed``; for
             training ``trainer`` ('adam' | 'adagrad' | 'rmsprop'),
             ``learning_rate`` (0.0001), ``microbatch_size``, ``remat``,
-            ``checkpoint_interval`` and ``abort_at_iou``.
+            ``checkpoint_interval``, ``abort_at_iou``,
+            ``device_augmentation`` (the keyword arguments of
+            ``ops/device_augment.augment_batch``) and ``loader_workers``
+            (the size of ``fit``'s assembly pool, default the host's
+            cores).
     """
 
     #: whether ``_test_outputs`` runs FCN expert stems through
@@ -219,11 +226,18 @@ class Estimator:
     def _microbatch_grads(self, variables, batch):
         """Loss, non-void pixel weight, BN updates and gradients of the
         trainable variables for one (micro)batch on the device: the body
-        of the plain and the microbatched train step."""
-        if self.config.get("device_augmentation"):
-            raise NotImplementedError(
-                "device_augmentation is not ported yet (ROADMAP.md section "
-                "1, item 11)")
+        of the plain and the microbatched train step.
+
+        With config ``device_augmentation`` the (micro)batch is augmented
+        first, from the model's generator, on raw [0, 255] frames and
+        without gradients. That happens outside the region ``remat``
+        recomputes, since ``torch.utils.checkpoint`` does not restore a
+        generator's state."""
+        augmentation = self.config.get("device_augmentation")
+        if augmentation:
+            with torch.no_grad():
+                batch = device_augment.augment_batch(self._generator, batch,
+                                                     **augmentation)
         train_batch = self._preprocess(batch)
         train_batch["labels"] = one_hot(batch["labels"],
                                         self.config["num_classes"])
@@ -340,13 +354,20 @@ class Estimator:
         ``checkpoint.pkl`` is written every that many steps; config
         ``abort_at_iou`` ends the fit once the validation mean IoU
         exceeds it.
+
+        Batches are assembled in a pool of config ``loader_workers``
+        threads (default: the host's cores) and copied to the device by a
+        producer thread ahead of the step (``to_device_prefetched``).
         """
         if self.custom_training:
             raise UserWarning(
                 f"ERROR: Model {self.name} does not support training")
         additional_eval_datasets = additional_eval_datasets or {}
-        batches = training_batches(data, self.config["batchsize"],
-                                   seed=int(self.config.get("seed", 0)))
+        workers = self.config.get("loader_workers", os.cpu_count())
+        batches = to_device_prefetched(
+            training_batches(data, self.config["batchsize"],
+                             seed=int(self.config.get("seed", 0)),
+                             workers=workers), self.device)
         summary_file = None
         event_writer = None
         if self.output_dir is not None:
@@ -394,6 +415,7 @@ class Estimator:
                             > self.config["abort_at_iou"]):
                         break
         finally:
+            batches.close()
             if summary_file is not None:
                 summary_file.close()
             if event_writer is not None:
@@ -425,25 +447,32 @@ class Estimator:
     def score(self, data, max_iterations=None):
         """Confusion-matrix metric suite. Returns (measures, confusion).
 
-        Each batch's counts go into one [K, K] int64 accumulator on the
-        device, one kernel launch a batch (``confusion_accumulate``); the
-        total is read back once and cast to float32 on the host. That
-        equals the JAX package's float32 running sum wherever every bin
-        is under 2**24; above it, JAX's sum rounds and this one stays
-        exact."""
+        Batches come padded from a producer thread that copies them to the
+        device ahead of the step (``prefetch_eval_batches``). Each batch's
+        counts go into one [K, K] int64 accumulator on the device, one
+        kernel launch a batch (``confusion_accumulate``); the total is
+        read back once and cast to float32 on the host. That equals the
+        JAX package's float32 running sum wherever every bin is under
+        2**24; above it, JAX's sum rounds and this one stays exact."""
         num_classes = self.config["num_classes"]
         count = 0
-        with torch.inference_mode():
-            total = torch.zeros((num_classes, num_classes),
-                                dtype=torch.int64, device=self.device)
-            for batch, _ in iterate_batches(data, self.config["batchsize"]):
-                batch = self._batch_to_device(batch)
-                out = self._forward(batch)
-                metrics_lib.confusion_accumulate(
-                    out["prediction"], batch["labels"], num_classes, total)
-                count += 1
-                if max_iterations is not None and count >= max_iterations:
-                    break
+        batches = prefetch_eval_batches(data, self.config["batchsize"],
+                                        self.device)
+        try:
+            with torch.inference_mode():
+                total = torch.zeros((num_classes, num_classes),
+                                    dtype=torch.int64, device=self.device)
+                for batch, _ in batches:
+                    out = self._forward(batch)
+                    metrics_lib.confusion_accumulate(
+                        out["prediction"], batch["labels"], num_classes,
+                        total)
+                    count += 1
+                    if (max_iterations is not None
+                            and count >= max_iterations):
+                        break
+        finally:
+            batches.close()
         confusion = total.cpu().numpy().astype(np.float32)
         measures = metrics_lib.measures_from_confusion_matrix(confusion)
         return measures, confusion

@@ -5,8 +5,8 @@ equal bit for bit, with the same dtypes (with and without
 ``compact_transfer``); the sklearn-free ``train_test_split`` must give
 sklearn's indices; ``augmentate`` (the parts without cv2) must give JAX's
 blob under the same ``random.seed`` and ``np.random.seed``, and its cv2
-parts must raise. A model scores a compact source (int8 labels) as it
-scores the plain one.
+parts refuse what cv2 refuses. A model scores a compact source (int8
+labels) as it scores the plain one.
 """
 
 import random
@@ -215,8 +215,22 @@ def test_augmentate_matches_jax(config):
                                         ("rotate", (1.0, -10, 10)),
                                         ("shear", (1.0, 0.1, 0.2))])
 def test_augmentate_refuses_the_cv2_parts(name, value):
-    with pytest.raises(NotImplementedError, match=name):
-        aug.augmentate(_blob(0), crop=(1.0, 32), **{name: value})
+    """The cv2 parts run without cv2 now (tests/
+    test_torch_host_augmentation.py holds them against JAX's); what they
+    refuse is what cv2 refuses: a bilinear warp (rotate) of int32
+    labels."""
+    random.seed(0)
+    np.random.seed(0)
+    if name == "rotate":
+        with pytest.raises(ValueError, match="int32"):
+            aug.augmentate(_blob(0), crop=(1.0, 32), **{name: value})
+        blob = _blob(0)
+        blob["labels"] = blob["labels"].astype(np.uint8)
+    else:
+        blob = _blob(0)
+    out = aug.augmentate(blob, crop=(1.0, 32), **{name: value})
+    assert out["rgb"].shape == (32, 32, 3) and out["rgb"].dtype == np.uint8
+    assert out["labels"].shape == (32, 32)
 
 
 def test_augmentation_helpers_match_jax():
@@ -257,14 +271,17 @@ def test_augmented_trainset_matches_jax():
 
 
 def test_registry():
-    for name in ("synthia", "cityscapes", "pascalvoc", "toydata",
-                 "mixeddata", "add_random_objects"):
+    for name in ("pascalvoc", "add_random_objects"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             get_dataset(name)
+    for name in ("synthia", "cityscapes", "toydata", "mixeddata"):
+        assert get_dataset(name).__name__ == jax_dataset(name).__name__
     with pytest.raises(UserWarning, match="not found"):
         get_dataset("nonexistent")
-    from modular_semantic_segmentation_torch.datasets import UnittestData
+    from modular_semantic_segmentation_torch.datasets import (
+        Synthia, UnittestData)
     assert UnittestData is get_dataset("unittest")
+    assert Synthia is get_dataset("synthia")
     with pytest.raises(NotImplementedError):
         from modular_semantic_segmentation_torch.datasets import \
-            Synthia  # noqa: F401
+            PascalVOC  # noqa: F401

@@ -363,12 +363,15 @@ def test_cli_refuses_cuda_without_a_card(runs):
             "net_config": dict(NET, prefix="rgb", modality="rgb")})
 
 
-def test_all_synthia_waits_for_its_dataset(runs):
-    with pytest.raises(NotImplementedError, match="synthia"):
+def test_all_synthia_waits_for_its_dataset(runs, tmp_path):
+    """Without a SYNTHIA tree ``all_synthia`` raises the driver's IOError,
+    as JAX's does (tests/test_torch_dataset_drivers.py runs it on one)."""
+    with pytest.raises(IOError, match="SYNTHIA"):
         evaluation.ex.run("all_synthia", config_updates={
             "modelname": "simple_fcn", "device": "cpu",
             "starting_weights": runs["port training rgb"],
-            "evaluation_data": {"dataset": "synthia"},
+            "evaluation_data": {"dataset": "synthia",
+                                "base_path": str(tmp_path / "missing")},
             "net_config": dict(NET, prefix="rgb", modality="rgb")})
 
 

@@ -1,10 +1,11 @@
 """Guards of what the GPU machine needs from the port and chip_smoke.py.
 
 That machine has PyTorch, numpy and scipy but no JAX and none of the JAX
-package's host dependencies (cv2, sklearn, yaml, pandas, tqdm). The port,
-its experiment CLIs, datasets and settings among it, and
-``chip_smoke.py`` must import without them and without loading any
-module of the JAX package; ``chip_smoke.py`` must fail, and print no
+package's host dependencies (cv2, PIL, sklearn, yaml, pandas, tqdm). The
+port, its experiment CLIs, datasets (the file drivers, the PNG reader and
+the native host ops among them) and settings, and ``chip_smoke.py`` must
+import without them, name none of them in an import, and load no module
+of the JAX package; ``chip_smoke.py`` must fail, and print no
 result line, where there is no CUDA card or no repository around it.
 """
 
@@ -22,7 +23,8 @@ import modular_semantic_segmentation_torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMOKE = os.path.join(REPO, "chip_smoke.py")
-UNAVAILABLE = ("jax", "jaxlib", "cv2", "sklearn", "yaml", "pandas", "tqdm")
+UNAVAILABLE = ("jax", "jaxlib", "cv2", "PIL", "sklearn", "yaml", "pandas",
+               "tqdm")
 
 
 def _port_modules():
@@ -55,8 +57,15 @@ def test_port_imports_without_jax_and_its_host_deps():
     # the experiment layer and the host data layer among them
     package = modular_semantic_segmentation_torch.__name__
     for name in ("settings", "utils.experiment", "utils.sacred_shim",
+                 "utils.data_io", "ops.device_augment",
                  "datasets", "datasets.data_baseclass",
-                 "datasets.unittest_data", "experiments.training",
+                 "datasets.unittest_data", "datasets.image_io",
+                 "datasets.native_backend", "datasets.augmentation",
+                 "datasets.synthia", "datasets.raw_synthia",
+                 "datasets.synthia_rand", "datasets.synthia_cityscapes",
+                 "datasets.cityscapes", "datasets.cityscapes_a",
+                 "datasets.cityscapes_b", "datasets.toydata",
+                 "datasets.mixed_data", "experiments.training",
                  "experiments.evaluation", "experiments.bayes_fusion",
                  "experiments.dirichlet_fusion",
                  "experiments.different_evaluation_parameters"):
@@ -104,6 +113,53 @@ def test_port_sources_import_no_jax():
                 bad = sorted(filter(_forbidden, _imports(
                     os.path.join(root, name))))
                 assert not bad, f"{name} imports {bad}"
+
+
+def test_input_pipeline_runs_without_cv2_pil_sklearn_yaml(tmp_path):
+    """The file drivers, the PNG reader and writer, the native host ops
+    and the cv2 parts of host augmentation run in a process where cv2,
+    PIL, sklearn and yaml cannot be imported: a raw SYNTHIA frame written
+    and preprocessed by the port, its blob read, augmented with scale,
+    rotate and shear, and batched."""
+    script = (
+        "import sys\n"
+        "for name in ('cv2', 'PIL', 'sklearn', 'yaml', 'jax'):\n"
+        "    sys.modules[name] = None\n"
+        "import os, random\n"
+        "import numpy as np\n"
+        "from modular_semantic_segmentation_torch.datasets import (\n"
+        "    augmentation, get_dataset, image_io)\n"
+        f"base = {str(tmp_path)!r}\n"
+        "seq = os.path.join(base, 'SYNTHIA-SEQS-04-DAWN')\n"
+        "rng = np.random.RandomState(0)\n"
+        "for i in range(6):\n"
+        "    for sub, img in (\n"
+        "            ('RGB', rng.randint(0, 256, (760, 1280, 3))),\n"
+        "            ('Depth', rng.randint(0, 9, (760, 1280))),\n"
+        "            ('GT/LABELS', rng.randint(0, 14, (760, 1280, 3)))):\n"
+        "        d = os.path.join(seq, sub, 'Stereo_Right', 'Omni_F')\n"
+        "        os.makedirs(d, exist_ok=True)\n"
+        "        image_io.imwrite(os.path.join(d, f'{i:06d}.png'),\n"
+        "                         img.astype(np.uint8))\n"
+        "data = get_dataset('synthia')(seqs=['SYNTHIA-SEQS-04-DAWN'],\n"
+        "                              base_path=base)\n"
+        "blob = data.get_testset().get_blob(0)\n"
+        "assert blob['rgb'].shape == (368, 640, 3)\n"
+        "random.seed(0)\n"
+        "np.random.seed(0)\n"
+        "small = {'rgb': blob['rgb'].astype(np.uint8),\n"
+        "         'labels': blob['labels'].astype(np.uint8)}\n"
+        "out = augmentation.augmentate(small, crop=(1.0, 96),\n"
+        "    scale=(1.0, 0.7, 1.5), rotate=(1.0, -13, 13),\n"
+        "    shear=(1.0, 0.05, 0.1))\n"
+        "assert out['rgb'].shape == (96, 96, 3)\n"
+        "batch = next(data.get_trainset().batches(2, workers=2))\n"
+        "assert batch['rgb'].shape == (2, 368, 640, 3)\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.strip().endswith("ok")
 
 
 def test_every_kernel_source_is_built():

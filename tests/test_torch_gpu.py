@@ -612,3 +612,77 @@ def test_dirichlet_from_measurement_exp_serves_on_the_card(
     gap = scores.max(-1).values - scores.gather(1, got_t[:, None])[:, 0]
     assert bool((gap <= 1e-5 * scores.max(-1).values.abs()).all())
     assert np.mean(got == want) >= 0.99
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("axis_aligned", [True, False])
+def test_device_augment_warp_on_the_card_matches_cpu(cuda, axis_aligned):
+    """The same maps warp on the card as on the CPU: nearest exact,
+    bilinear uint8 exact except rounding ties (the CPU's float value
+    within 1e-3 of a half-integer)."""
+    from modular_semantic_segmentation_torch.ops import device_augment as da
+    gen = torch.Generator().manual_seed(3)
+    rgb = torch.randint(0, 256, (4, 40, 56, 3), generator=gen,
+                        dtype=torch.uint8)
+    labels = torch.randint(-1, 14, (4, 40, 56), generator=gen,
+                           dtype=torch.int32)
+    config = ({"crop": (1.0, 32), "scale": (1.0, 0.7, 1.5), "hflip": 0.5}
+              if axis_aligned else
+              {"crop": (1.0, 32), "rotate": (1.0, -10, 10),
+               "shear": (1.0, 0.05, 0.1)})
+    m = da.geometry_from_draws(da.draw_uniforms(gen, 4, da.GEOMETRY_DRAWS),
+                               40, 56, 32, 32, **config)
+    got = da._warp(labels.to(cuda), m.to(cuda), 32, 32, 0, axis_aligned)
+    assert torch.equal(got.cpu(), da._warp(labels, m, 32, 32, 0,
+                                           axis_aligned))
+    got = da._warp(rgb.to(cuda), m.to(cuda), 32, 32, 1, axis_aligned).cpu()
+    want = da._warp(rgb, m, 32, 32, 1, axis_aligned)
+    exact = da._warp(rgb.float(), m, 32, 32, 1, axis_aligned)
+    tie = ((exact - exact.floor()) - 0.5).abs() < 1e-3
+    diff = (got.int() - want.int()).abs()
+    assert int(diff.max()) <= 1 and not bool(diff[~tie].any())
+
+
+@pytest.mark.gpu
+def test_prefetcher_copies_to_the_card_and_reraises(cuda):
+    from modular_semantic_segmentation_torch.utils.data_io import (
+        prefetch_eval_batches, to_device_prefetched)
+
+    def producer():
+        for i in range(4):
+            yield {"x": np.full((2, 3), i, np.float32)}
+        raise KeyError("producer failed")
+
+    seen = []
+    with pytest.raises(KeyError, match="producer failed"):
+        for batch in to_device_prefetched(producer(), cuda):
+            assert batch["x"].is_cuda
+            seen.append(float(batch["x"].sum()))
+    assert seen == [0.0, 6.0, 12.0, 18.0]
+    data = {"rgb": np.arange(5 * 6, dtype=np.float32).reshape(5, 6),
+            "labels": np.arange(5, dtype=np.int32)}
+    got = [(b["labels"].cpu().tolist(), valid)
+           for b, valid in prefetch_eval_batches(data, 2, cuda)]
+    assert got == [([0, 1], 2), ([2, 3], 2), ([4, -1], 1)]
+
+
+@pytest.mark.gpu
+def test_fit_with_device_augmentation_and_workers_on_the_card(cuda):
+    """``fit`` with the loader's pool, the prefetcher and on-device
+    augmentation on the card; its validation through kernel A."""
+    from modular_semantic_segmentation_torch.datasets import get_dataset
+    from modular_semantic_segmentation_torch.models import get_model
+    data = get_dataset("unittest")(height=64, width=64, num_train=8)
+    net = get_model("simple_fcn")(
+        prefix="rgb", modality="rgb",
+        data_description=data.get_data_description(), num_units=8,
+        batchsize=2, loader_workers=3, device_augmentation={
+            "crop": (1.0, 48), "scale": (0.5, 0.7, 1.5), "hflip": 0.5,
+            "rotate": (0.5, -10, 10), "gamma": (0.5, 0.4, 1.4)})
+    before = confusion.KERNEL.launches
+    net.fit(data.get_trainset(), 4, output=False,
+            validation_dataset=data.get_validation_set(),
+            validation_interval=2)
+    assert confusion.KERNEL.launches > before
+    measures, _ = net.score(data.get_testset())
+    assert np.isfinite(measures["total_accuracy"])

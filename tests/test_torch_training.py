@@ -415,10 +415,13 @@ def test_bf16_training_converges_like_float32():
 
 
 def test_device_augmentation_is_refused():
+    """An augmentation the on-device op set does not have is refused, as
+    JAX's ``augment_sample`` refuses it (the ported ones are held against
+    JAX's in tests/test_torch_device_augment.py)."""
     net = get_model("simple_fcn")(device="cpu", batchsize=2,
                                   device_augmentation={"flip": True},
                                   **SMALL)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(TypeError, match="flip"):
         net.fit(_batch(11), 1, output=False)
 
 
@@ -494,8 +497,8 @@ def test_training_batches_order_matches_jax():
 
 def test_training_batches_of_a_source_and_an_iterator():
     """A data source's own ``batches`` is asked for a shuffled, repeated
-    stream with the fit's seed; an iterator of batches is taken as it
-    comes."""
+    stream with the fit's seed and its worker pool (none unless given); an
+    iterator of batches is taken as it comes."""
     calls = []
 
     class Source:
@@ -503,7 +506,11 @@ def test_training_batches_of_a_source_and_an_iterator():
             calls.append((batchsize, kwargs))
             return iter(["batch"])
     assert list(data_io.training_batches(Source(), 3, seed=4)) == ["batch"]
-    assert calls == [(3, {"shuffle": True, "repeat": True, "seed": 4})]
+    assert calls == [(3, {"shuffle": True, "repeat": True, "seed": 4,
+                          "workers": None})]
+    assert list(data_io.training_batches(Source(), 3, seed=4,
+                                         workers=2)) == ["batch"]
+    assert calls[-1][1]["workers"] == 2
     given = [{"rgb": np.zeros((1, 2, 2, 3), np.float32)}] * 2
     assert list(data_io.training_batches(iter(given), 1, seed=0)) == given
 
