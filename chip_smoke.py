@@ -137,7 +137,29 @@ H100) and the CUDA toolkit. Phases, each printing its own lines:
     equal the CPU's for the same maps (nearest exact, bilinear uint8
     exact except rounding ties, counted), the prefetcher re-raises an
     exception injected into its producer, and kernel A's launches equal
-    the phase's validation and score batches.
+    the phase's validation and score batches;
+18. the experiment surface, in-process in a temporary store: the timing
+    CLI's ``main`` at its defaults (768x384, num_units 64, 14 classes,
+    bf16) with 10 repetitions (the paper's Table V sweep),
+    ``time_adapnet`` and ``time_bayes_adapnet`` in bf16 and int8,
+    ``time_serving`` (Bayes bf16 and int8, Bayes-AdapNet int8),
+    ``time_train_step`` (SimpleFCN and AdapNet, batch 1) and
+    ``time_offline_eval`` (16 frames, batch 8); ``report``'s Table V of
+    the ``main`` run beside the paper's GTX 1080 Ti figures; Bayes-AdapNet
+    in bf16 and int8 on one seeded frame (its int8 convs, ``_int_mm``
+    launches, label agreement); then, every score's counts held against
+    kernel A's plain version: ``uncertainty_eval``'s
+    ``uncertainty_benchmark`` (out_of_distribution, entropy) on
+    ``add_random_objects`` over 768x384 UnittestData (8 classes, an object
+    library written by the phase) and ``measure``, with a seeded
+    full-width BayesianFCN; ``training`` of the rgb and depth SimpleFCN
+    (2 steps), ``finetuning rgb_to_depth`` of the rgb run (2 steps), a
+    FusionFCN step and ``train_and_evaluate_progressive rgb_to_depth``
+    from it (2 steps; the lateral column's first kernel the translated
+    one), and ``ibcc_fusion`` of the two experts. Gates: the int8 AdapNet
+    rows and the seeded frame launched ``_int_mm``, the AUROC in [0, 1],
+    finite NLL, the translated kernels, the IBCC labels' shapes and
+    range, kernel A launched.
 
 The launch counts are set to 0 just before phase 4 and read just after
 phase 7 (confusion and Dirichlet kernels), set to 0 just before and read
@@ -145,7 +167,8 @@ just after phase 8 (stem conv), phase 10 (confusion kernel), the int8
 path of phase 11 (confusion and Dirichlet kernels, ``_int_mm``), phase
 13 (confusion kernel), phase 14's serving path (confusion and
 Dirichlet kernels) and training path (confusion kernel), phase 16
-(confusion and Dirichlet kernels) and phase 17 (confusion kernel). The
+(confusion and Dirichlet kernels), phase 17 (confusion kernel) and
+phase 18 (confusion kernel). The
 third-to-last line is the int8 product's JSON record (a library call,
 not a kernel of the port), the second-to-last the kernels' and the last
 ``{"ok": true, "device": {...}}``. Any fault exits non-zero with no
@@ -1050,26 +1073,37 @@ def learnable_frames(seed, count):
     return {"rgb": rgb.astype(np.float32), "labels": labels.astype(np.int32)}
 
 
-def score_checked(score, data, what):
+def score_checked(score, data, what, pending=None):
     """``score(data)`` with kernel A's counts held against its plain
-    version on the same predictions; returns (measures, counts)."""
+    version on the same predictions; returns (measures, counts). The
+    plain version runs after the score returns; with a list ``pending``
+    its check is appended there to run later, outside whatever times the
+    score."""
     from modular_semantic_segmentation_torch.ops import metrics
     from modular_semantic_segmentation_torch.ops.cuda import confusion
-    accumulate, plain = metrics.confusion_accumulate, []
+    accumulate, batches = metrics.confusion_accumulate, []
 
-    def plain_too(predictions, labels, k, total):
-        plain.append(confusion.confusion_counts_plain(predictions, labels,
-                                                      k))
+    def recorded(predictions, labels, k, total):
+        batches.append((predictions, labels, k))
         return accumulate(predictions, labels, k, total)
 
-    metrics.confusion_accumulate = plain_too
+    metrics.confusion_accumulate = recorded
     try:
         measures, counts = score(data)
     finally:
         metrics.confusion_accumulate = accumulate
-    want = sum(plain).cpu().numpy().astype(np.float32)
-    check(np.array_equal(counts, want), f"{what}: kernel A's confusion "
-          "counts differ from its plain version")
+
+    def verify():
+        with torch.inference_mode():
+            want = sum(confusion.confusion_counts_plain(*batch)
+                       for batch in batches).cpu().numpy().astype(np.float32)
+        check(np.array_equal(counts, want), f"{what}: kernel A's confusion "
+              "counts differ from its plain version")
+
+    if pending is None:
+        verify()
+    else:
+        pending.append(verify)
     return measures, counts
 
 
@@ -1804,11 +1838,13 @@ PIPELINE_EM_ITERATIONS = ADAPNET_EM_ITERATIONS
 class KernelChecks:
     """Each launch of kernels A and B on the pipeline held against its
     plain version on the same inputs: every ``score`` through
-    ``score_checked`` (A's counts equal), and every Dirichlet label of B
-    a tie, within TIE_RTOL, of its plain version's best score."""
+    ``score_checked`` (A's counts equal, checked when the block ends, so
+    that no timed score pays for its check), and every Dirichlet label of
+    B a tie, within TIE_RTOL, of its plain version's best score."""
 
     def __init__(self):
         self.scores, self.labels = 0, 0
+        self.pending = []
 
     def __enter__(self):
         from modular_semantic_segmentation_torch.models.estimator import \
@@ -1821,7 +1857,8 @@ class KernelChecks:
             self.scores += 1
             return score_checked(lambda d: real_score(net, d, *args,
                                                       **kwargs),
-                                 data, f"{type(net).__name__} score")
+                                 data, f"{type(net).__name__} score",
+                                 self.pending)
 
         def label(probs, coeffs, bias):
             got = real_label(probs, coeffs, bias)
@@ -1842,6 +1879,9 @@ class KernelChecks:
             Estimator
         from modular_semantic_segmentation_torch.ops.cuda import dirichlet
         Estimator.score, dirichlet.dirichlet_label = self._score, self._label
+        if exc[0] is None:
+            for verify in self.pending:
+                verify()
 
 
 def run_cli(module, command, config, what, seconds):
@@ -2334,6 +2374,284 @@ def input_pipeline(card):
     return launches
 
 
+# phase 18, the experiment surface: the timing CLI at its defaults (768x384,
+# num_units 64, 14 classes, bf16), its Table V report, int8 AdapNet, the
+# uncertainty benchmarks on AddRandomObjects, finetuning, the progressive
+# FCN and the IBCC dump, in-process in a temporary store
+SURFACE_REPETITIONS = 10
+SURFACE_OFFLINE = {"num_frames": 16, "batchsize": 8}
+SURFACE_STEPS = 2
+SURFACE_STEP_REPETITIONS = 3  # device_time_fn's runs of 8 and of 32 steps
+SURFACE_CLASSES = 8  # the most UnittestData draws (its 8 class colours)
+SURFACE_DATA = {"height": HEIGHT, "width": WIDTH, "num_train": 2,
+                "num_measure": 2, "num_test": 2,
+                "num_classes": SURFACE_CLASSES}
+SURFACE_NET = {"num_units": NUM_UNITS, "batchsize": 1,
+               "learning_rate": 1e-4}
+SURFACE_BAYESIAN = {"prefix": "rgb", "modality": "rgb",
+                    "num_units": NUM_UNITS, "batchsize": 1}
+# the object library: textured ellipses, dark and bright, on black
+SURFACE_OBJECTS = range(251, 259)
+SURFACE_OBJECT_SIZE = (96, 128)
+
+
+def write_object_library(base):
+    """SURFACE_OBJECTS objects of SURFACE_OBJECT_SIZE in the Amsterdam
+    Object Library's layout under ``base``, written with the port's PNG
+    writer."""
+    from modular_semantic_segmentation_torch.datasets import image_io
+    rng = np.random.RandomState(5)
+    h, w = SURFACE_OBJECT_SIZE
+    rows, cols = np.mgrid[:h, :w]
+    for num in SURFACE_OBJECTS:
+        ry, rx = rng.randint(h // 4, h // 2), rng.randint(w // 4, w // 2)
+        inside = ((rows - h / 2) / ry) ** 2 + ((cols - w / 2) / rx) ** 2 < 1
+        low = 30 if num % 2 else 130
+        obj = np.where(inside[..., None],
+                       rng.randint(low, low + 100, (h, w, 3)), 0)
+        folder = os.path.join(base, "amsterdam_object_lib", str(num))
+        os.makedirs(folder)
+        image_io.imwrite(os.path.join(folder, f"{num}_c.png"),
+                         obj.astype(np.uint8))
+
+
+def _timings(module, command, config):
+    module.ex.run(command, config_updates=dict(config, device="cuda"))
+    torch.cuda.synchronize()
+    return module.ex.current_run._id, module.ex.current_run.info["timings"]
+
+
+def surface_timing(card):
+    """The timing CLI's rows: ``main`` at its defaults (Table V), AdapNet
+    and Bayes-AdapNet in bf16 and int8, the serving group (Bayes bf16 and
+    int8, Bayes-AdapNet int8), the train steps and the offline
+    evaluation; then ``report timing_table`` of the ``main`` run. Returns
+    the int8 AdapNet rows' ``_int_mm`` launches."""
+    from modular_semantic_segmentation_torch.experiments import (
+        report, timing)
+    from modular_semantic_segmentation_torch.ops import int8_conv
+    reps = {"repetitions": SURFACE_REPETITIONS}
+    main_run, table_v = _timings(timing, "main", reps)
+    check(set(table_v) == set(report.REFERENCE_TIMINGS_S), "timing main "
+          f"recorded {list(table_v)}")
+    rows = {}
+    int_mm = {}
+    for command, name in (("time_adapnet", "adapnet_rgb"),
+                          ("time_bayes_adapnet", "bayes_adapnet")):
+        for int8 in (False, True):
+            before = int8_conv.INT_MM.launches
+            _, got = _timings(timing, command, dict(reps, int8=int8))
+            rows[name + ("_int8" if int8 else "")] = got[name]
+            if int8:
+                int_mm[name] = int8_conv.INT_MM.launches - before
+    for model, int8 in (("bayes_fcn", False), ("bayes_fcn", True),
+                        ("bayes_adapnet", True)):
+        before = int8_conv.INT_MM.launches
+        _, got = _timings(timing, "time_serving", dict(
+            reps, model=model, int8=int8))
+        rows.update(got)
+        if int8 and model == "bayes_adapnet":
+            int_mm["serving_bayes_adapnet"] = (int8_conv.INT_MM.launches
+                                               - before)
+    for model in ("simple_fcn", "adapnet"):
+        _, got = _timings(timing, "time_train_step", dict(
+            model=model, repetitions=SURFACE_STEP_REPETITIONS))
+        rows.update(got)
+    _, got = _timings(timing, "time_offline_eval", SURFACE_OFFLINE)
+    rows.update(got)
+    check(all(int_mm.values()), "an int8 AdapNet row launched no "
+          f"_int_mm: {int_mm}")
+
+    table = report.build_timing_table(main_run)
+    print(f"Table V (timing main, bf16, {HEIGHT}x{WIDTH}, num_units "
+          f"{NUM_UNITS}, 14 classes, repetitions {SURFACE_REPETITIONS}; "
+          f"host clock, synchronised) on {card}, beside the paper's GTX "
+          "1080 Ti figures (BASELINE.md):")
+    print(table)
+    for name in table.index:
+        row = dict(zip(table.columns, table.values[table.index.index(name)]))
+        print(f"Table V {name}: {row['s/frame'] * 1e3:.3f} ms/frame "
+              f"pipelined, {row['sync s/frame'] * 1e3:.3f} +- "
+              f"{row['±std'] * 1e3:.3f} ms sync; the paper's GTX 1080 Ti "
+              f"{row['reference s/frame'] * 1e3:.1f} ms ({row['speedup']:.2f}"
+              f"x) on {card}")
+    for name, row in rows.items():
+        if "s_per_step" in row:
+            print(f"timing {name} ({row['model']}, batch "
+                  f"{row['batchsize']}): {row['s_per_step'] * 1e3:.3f} ms "
+                  f"per step (device_time_fn, the floors of "
+                  f"{SURFACE_STEP_REPETITIONS} runs of 8 and of 32 steps) "
+                  f"on {card}")
+        elif "s_total" in row:
+            print(f"timing {name}: {row['img_per_s']:.1f} frames/s, "
+                  f"{row['num_frames']} frames at batch {row['batchsize']}"
+                  f" ({row['s_total']:.3f} s, host clock) on {card}")
+        else:
+            per_frame = row.get("serving_s_per_frame",
+                                row["pipelined_mean_s"])
+            print(f"timing {name}: {per_frame * 1e3:.3f} ms/frame "
+                  f"{'served (unroll 4)' if 'unroll' in row else 'pipelined'}"
+                  f", {row['sync_mean_s'] * 1e3:.3f} ms sync on {card}")
+    print(f"int8 AdapNet rows: _int_mm launches {int_mm}")
+    return int_mm
+
+
+def int8_adapnet_agreement(card):
+    """Bayes-AdapNet as ``time_bayes_adapnet`` builds it, on a seeded
+    frame: the labels in bf16, then calibrated on that frame and served in
+    int8; the convs that went int8 and the share of labels that agree."""
+    from modular_semantic_segmentation_torch.experiments import timing
+    from modular_semantic_segmentation_torch.ops import int8_conv
+    net = timing.BUILDERS["bayes_adapnet"][0](timing._cfg({}))
+    frame = make_frames(3, 1)
+    frame = {m: frame[m] for m in MODALITIES}
+    bf16 = forward(net, frame)["prediction"]
+    scales = net.quantize_for_serving(frame, num_batches=1)
+    check(len(scales) > 0, "int8 Bayes-AdapNet quantized no conv")
+    before = int8_conv.INT_MM.launches
+    int8 = forward(net, frame)["prediction"]
+    launches = int8_conv.INT_MM.launches - before
+    check(launches > 0, "int8 Bayes-AdapNet launched no _int_mm")
+    agree = float((bf16 == int8).float().mean())
+    print(f"int8 Bayes-AdapNet: {len(scales)} convs int8 (floor "
+          f"{net.ptq_min_pixels} input positions, at least 128 input "
+          f"channels), {launches} _int_mm launches a frame; int8 and bf16 "
+          f"labels agree on {agree:.4f} of a {HEIGHT}x{WIDTH} frame on "
+          f"{card}")
+    return len(scales), launches
+
+
+def surface_pipeline(card, base):
+    """The uncertainty benchmarks (BayesianFCN, seeded weights, on
+    AddRandomObjects over UnittestData and on UnittestData), training of
+    the rgb and depth SimpleFCN, finetuning ``rgb_to_depth`` of the rgb
+    run, a FusionFCN step and the progressive depth column from its
+    translated rgb column, and the IBCC dump of the two experts. Returns
+    {what: seconds}."""
+    from modular_semantic_segmentation_torch import settings
+    from modular_semantic_segmentation_torch.experiments import (
+        finetuning, ibcc_fusion, train_and_evaluate_progressive, training,
+        uncertainty_eval)
+    from modular_semantic_segmentation_torch.models import get_model
+    from modular_semantic_segmentation_torch.utils.experiment import \
+        ExperimentData
+    seconds, runs = {}, {}
+
+    def run(what, module, command, config):
+        start = time.perf_counter()
+        module.ex.run(command, config_updates=dict(config, device="cuda",
+                                                   seed=1))
+        torch.cuda.synchronize()
+        seconds[what] = time.perf_counter() - start
+        runs[what] = module.ex.current_run._id
+        return module.ex.current_run.info
+
+    write_object_library(base)
+    settings.DATA_BASEPATH = base
+    data = {"name": "unittest", **SURFACE_DATA}
+    ood = dict(data, name="add_random_objects", add_to_dataset="unittest")
+    net = get_model("bayesian_fcn")(data_description=(
+        {"rgb": np.float32, "labels": np.int32},
+        {"rgb": (None, None, 3), "labels": (None, None)}, SURFACE_CLASSES),
+        device="cuda", seed=4, **SURFACE_BAYESIAN)
+    weights = net.export_weights(base)
+    common = {"modelname": "bayesian_fcn", "net_config": SURFACE_BAYESIAN,
+              "starting_weights": weights}
+    info = run("uncertainty_benchmark", uncertainty_eval, "main", dict(
+        common, dataset=ood, benchmark="out_of_distribution",
+        uncertainty_metrics=["entropy"]))
+    auroc = info["measurements"]["entropy"]["AUROC"]
+    check(0.0 <= auroc <= 1.0, f"out-of-distribution AUROC {auroc}")
+    info = run("measure", uncertainty_eval, "measure", dict(
+        common, dataset=data, uncertainty_metrics=["entropy", "variance"]))
+    measured = info["measurements"]
+    check(np.isfinite(measured["nll"]), f"measure: NLL {measured['nll']}")
+    for m in MODALITIES:
+        run(f"training {m}", training, "main", {
+            "modelname": "simple_fcn", "num_iterations": SURFACE_STEPS,
+            "starting_weights": False, "dataset": data,
+            "net_config": dict(SURFACE_NET, prefix=m, modality=m)})
+    eval_data = {"dataset": "unittest", **SURFACE_DATA}
+    run("finetuning rgb_to_depth", finetuning, "rgb_to_depth", {
+        "starting_weights": {"experiment_id": runs["training rgb"]},
+        "data_config": eval_data, "num_iterations": SURFACE_STEPS,
+        "net_config": dict(SURFACE_NET, prefix="rgb", modality="depth")})
+    with np.load(ExperimentData(runs["finetuning rgb_to_depth"]
+                                ).get_weights()) as npz:
+        check(npz["rgb/conv1_1/kernel"].shape[2] == 1, "finetuning "
+              "rgb_to_depth: the first kernel is not one channel wide")
+    run("training fusion_fcn", training, "main", {
+        "modelname": "fusion_fcn", "num_iterations": 1,
+        "starting_weights": False, "dataset": data,
+        "net_config": dict(SURFACE_NET, prefixes={m: m for m in MODALITIES})})
+    run("progressive rgb_to_depth", train_and_evaluate_progressive,
+        "rgb_to_depth", {
+            "starting_weights": {"experiment_id": runs[
+                "training fusion_fcn"]},
+            "data_config": eval_data, "num_iterations": SURFACE_STEPS,
+            "net_config": dict(SURFACE_NET, prefix="depth",
+                               modality="depth",
+                               lateral_columns={"rgb": "depth"})})
+    with np.load(ExperimentData(runs["training fusion_fcn"]).get_weights()
+                 ) as a, np.load(ExperimentData(runs[
+                     "progressive rgb_to_depth"]).get_weights()) as b:
+        check(np.array_equal(b["rgb_conv1_1/kernel"], a[
+            "rgb_conv1_1/kernel"].mean(2, keepdims=True)),
+              "progressive rgb_to_depth: the lateral column's first kernel "
+              "is not the translated rgb column's")
+    save_to = os.path.join(base, "ibcc")
+    run("ibcc_fusion", ibcc_fusion, "main", {
+        "net_config": dict(SURFACE_NET, expert_model="fcn",
+                           prefixes={m: m for m in MODALITIES}),
+        "dataset": data, "save_to": save_to,
+        "starting_weights": {m: runs[f"training {m}"] for m in MODALITIES}})
+    with np.load(os.path.join(save_to, "predictions.npz")) as npz:
+        for m in MODALITIES:
+            labels = npz[f"test_{m}"]
+            check(labels.shape == npz["test_gt"].shape
+                  and labels.min() >= 0 and labels.max() < SURFACE_CLASSES,
+                  f"ibcc_fusion: test_{m} of shape {labels.shape}")
+    print(f"uncertainty benchmarks (BayesianFCN, seeded weights, {HEIGHT}x"
+          f"{WIDTH}, {SURFACE_CLASSES} classes): out-of-distribution "
+          f"AUROC of entropy {auroc:.4f} on AddRandomObjects over "
+          f"UnittestData; measure: NLL {measured['nll']:.4f}, entropy mean "
+          f"{measured['entropy']['mean']:.4f}, variance mean "
+          f"{measured['variance']['mean']:.4f}")
+    print("experiment surface runs (seconds, host clock, synchronised): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items())
+          + f" on {card}")
+    return seconds
+
+
+def experiment_surface(card):
+    """Phase 18 in a temporary store: the timing rows and their Table V,
+    the int8 AdapNet agreement and the surface's CLIs, every score's
+    counts (the offline evaluation's among them) held against kernel A's
+    plain version once the phase's runs are done. Returns kernel A's
+    launches on the phase."""
+    import tempfile
+    from modular_semantic_segmentation_torch import settings
+    from modular_semantic_segmentation_torch.ops.cuda import confusion
+    saved = (settings.EXPERIMENT_STORAGE_FOLDER, settings.EXP_OUT,
+             settings.DATA_BASEPATH)
+    with tempfile.TemporaryDirectory() as base:
+        settings.EXPERIMENT_STORAGE_FOLDER = os.path.join(base, "experiments")
+        settings.EXP_OUT = os.path.join(base, "exp")
+        confusion.KERNEL.launches = 0
+        try:
+            with KernelChecks() as checks:
+                surface_timing(card)
+                int8_adapnet_agreement(card)
+                surface_pipeline(card, base)
+            launches = confusion.KERNEL.launches
+        finally:
+            (settings.EXPERIMENT_STORAGE_FOLDER, settings.EXP_OUT,
+             settings.DATA_BASEPATH) = saved
+    print(f"experiment surface kernel checks: {checks.scores} scores with "
+          "kernel A's counts equal to its plain version's")
+    return launches
+
+
 def main():
     times = {}
 
@@ -2506,6 +2824,14 @@ def main():
     # ---- end of the training input pipeline's path
     check(input_launches > 0, "the input pipeline launched no confusion "
           "kernel")
+    # ---- the experiment surface's path: kernel A's count is set to 0 and
+    # read inside experiment_surface
+    surface_launches = timed("experiment surface", experiment_surface,
+                             smi_line)
+    # ---- end of the experiment surface's path
+    print(f"experiment surface path: confusion launches {surface_launches}")
+    check(surface_launches > 0, "the experiment surface launched no "
+          "confusion kernel")
     for record in records:
         record["launches"] = launches[record["name"]]
         check(record["launches"] > 0,

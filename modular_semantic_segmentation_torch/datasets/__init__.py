@@ -2,9 +2,8 @@
 ``datasets/__init__.py``), with lazy class exports.
 
 Every name of the JAX package's registry resolves to the port's driver,
-except ``pascalvoc`` (its JPEG frames need a decoder without cv2) and
-``add_random_objects`` (it goes with the ``uncertainty_eval`` CLI), which
-raise ``NotImplementedError`` (ROADMAP.md, section 1, item A3); an
+except ``pascalvoc`` (its JPEG frames need a decoder without cv2), which
+raises ``NotImplementedError`` (ROADMAP.md, section 1, item A3); an
 unknown name raises the JAX package's ``UserWarning``.
 """
 
@@ -21,13 +20,13 @@ _REGISTRY = {
     "raw_synthia": ("raw_synthia", "RawSynthia"),
     "toydata": ("toydata", "ToyData"),
     "mixeddata": ("mixed_data", "MixedData"),
+    "add_random_objects": ("not_cityscapes", "AddRandomObjects"),
     "unittest": ("unittest_data", "UnittestData"),
 }
 
 #: the JAX package's other datasets, by registry name and class name
 _NOT_PORTED = {
     "pascalvoc": "PascalVOC",
-    "add_random_objects": "AddRandomObjects",
 }
 
 

@@ -1,6 +1,9 @@
 """The experiment CLIs of the port (counterparts of the JAX package's
-``experiments/``): training, evaluation, Bayes and Dirichlet fusion and the
-grid search over network parameters.
+``experiments/``, with their commands): training, evaluation, Bayes and
+Dirichlet fusion, the grid search over network parameters, timing (Table
+V), the uncertainty benchmarks, finetuning, the progressive FCN, the IBCC
+prediction dump, the report of the paper's tables and the rerun of a
+stored run.
 
 Each runs as ``python -m modular_semantic_segmentation_torch.experiments.
 <name> [command] with <config>.json key=value ...`` and records its run in

@@ -20,10 +20,6 @@ from modular_semantic_segmentation_torch.ops.init import layer_specs
 from modular_semantic_segmentation_torch.ops.losses import cross_entropy
 from modular_semantic_segmentation_torch.models.estimator import Estimator
 
-#: what int8 serving of a model with AdapNet experts raises
-INT8_NOT_PORTED = ("int8 serving of AdapNet experts is not ported yet "
-                   "(ROADMAP.md section 1, item 15)")
-
 _BLOCK_CONV = {"batch_normalization": True, "use_bias": False}
 
 
@@ -203,6 +199,3 @@ class Adapnet(Estimator):
         prob = ll.softmax(self._score(ctx, batch))
         return {"prob": prob,
                 "prediction": prob.argmax(-1).to(torch.int32)}
-
-    def quantize_for_serving(self, *args, **kwargs):
-        raise NotImplementedError(INT8_NOT_PORTED)

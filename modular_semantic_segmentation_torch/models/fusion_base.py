@@ -11,7 +11,7 @@ import torch
 
 from modular_semantic_segmentation_torch.ops import layers as ll
 from modular_semantic_segmentation_torch.models.adapnet import (
-    INT8_NOT_PORTED, adapnet, adapnet_variable_specs)
+    adapnet, adapnet_variable_specs)
 from modular_semantic_segmentation_torch.models.estimator import Estimator
 from modular_semantic_segmentation_torch.models.packed_experts import (
     can_pack_stems, packed_fcn_stems)
@@ -65,7 +65,7 @@ class FusionModel(Estimator):
 
     Config:
         prefixes: dict {modality: variable-name prefix} for the experts.
-        expert_model: 'fcn' | 'adapnet' (int8 serving: FCN only).
+        expert_model: 'fcn' | 'adapnet'.
         pack_experts: run the FCN stems through ``packed_fcn_stems``
             (default True).
     """
@@ -103,11 +103,6 @@ class FusionModel(Estimator):
                     batchnorm=self.config.get("batch_normalization", False),
                     channel_factor=self.config.get("channel_factor", 1.0))
         return specs
-
-    def quantize_for_serving(self, *args, **kwargs):
-        if self.config.get("expert_model") == "adapnet":
-            raise NotImplementedError(INT8_NOT_PORTED)
-        return Estimator.quantize_for_serving(self, *args, **kwargs)
 
     def _fusion(self, expert_outputs):
         """Fuse expert outputs into a dict with at least 'prediction'."""

@@ -17,7 +17,10 @@ Counterpart of the JAX package's ``ops/layers.py``:
       of each window, as the JAX package's mask gradient), softmax (with a
       temperature), log_softmax, entropy;
     * adap_conv: the progressive nets' adapter block;
-    * dropout: TF-style MC dropout drawing from ``ctx.next_generator()``.
+    * dropout: TF-style MC dropout drawing from ``ctx.next_generator()``;
+    * max_pool_with_argmax and unpool_2d: max pooling with TF's flattened
+      ``[H*W*C]`` argmax indices, and the max unpooling that scatters
+      through them.
 
 Tensors are NHWC at every function here. A convolution sees the
 ``permute(0, 3, 1, 2)`` view: an NCHW tensor in channels-last memory, which
@@ -372,3 +375,29 @@ def dropout(ctx, x, rate, training=True, noise_shape=None):
     uniform = torch.rand(tuple(noise_shape) if noise_shape else x.shape,
                          generator=ctx.next_generator(), device=x.device)
     return torch.where(uniform < keep, x / keep, torch.zeros_like(x))
+
+
+def max_pool_with_argmax(x, pool_size=2, strides=2):
+    """VALID max pool of an NHWC tensor and its argmax indices in TF's
+    convention: the index into the flattened [H*W*C] tensor of each batch
+    item, int32. Of a tied window's maxima the first in row-major order is
+    taken."""
+    n, h, w, c = x.shape
+    pooled, idx = F.max_pool2d(x.permute(0, 3, 1, 2), _pair(pool_size),
+                               _pair(strides), return_indices=True)
+    # PyTorch's index is h*W + w within each (item, channel) plane
+    channel = torch.arange(c, device=x.device).view(1, c, 1, 1)
+    tf_idx = idx * c + channel
+    return (pooled.permute(0, 2, 3, 1),
+            tf_idx.permute(0, 2, 3, 1).to(torch.int32))
+
+
+def unpool_2d(pool, ind, stride=2):
+    """Max unpooling: each pooled value scattered to its flattened
+    ``[H*W*C]`` index ``ind`` (as :func:`max_pool_with_argmax` gives it) of
+    a zero tensor ``stride`` times the pooled height and width."""
+    n, h, w, c = pool.shape
+    out = torch.zeros((n, h * stride * w * stride * c), dtype=pool.dtype,
+                      device=pool.device)
+    out.scatter_(1, ind.reshape(n, -1).long(), pool.reshape(n, -1))
+    return out.reshape(n, h * stride, w * stride, c)

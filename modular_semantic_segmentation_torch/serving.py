@@ -48,22 +48,29 @@ class InferenceServer:
         self._act_scales = None
         self._mode_fixed = False
 
+    def group_program(self, frame_batches):
+        """Run one group of batch-1 frames already on the model's device
+        (``{"rgb": [1, H, W, 3], ...}`` each) and return their outputs,
+        queued on the device: the JAX package's ``group_program``, whose
+        variables and random key the port's model holds itself. The first
+        call fixes the serving mode."""
+        net = self._net
+        if not self._mode_fixed:
+            self._act_scales = net.act_scales
+            self._mode_fixed = True
+        return [net._forward_with_scales(batch, self._act_scales)[self._attr]
+                for batch in frame_batches]
+
     def _dispatch(self, frames):
         """Queue one (possibly short) group. Returns (outputs, valid,
         event): host tensors that hold the outputs once ``event`` (None
         on the CPU) has completed."""
         net = self._net
-        if not self._mode_fixed:
-            self._act_scales = net.act_scales
-            self._mode_fixed = True
         valid = len(frames)
         padded = frames + [frames[-1]] * (self.unroll - valid)
-        outs = []
-        for frame in padded:
-            batch = {k: v[None] if hasattr(v, "ndim")
-                     else np.asarray(v)[None] for k, v in frame.items()}
-            outs.append(net._forward_with_scales(
-                net._batch_to_device(batch), self._act_scales)[self._attr])
+        outs = self.group_program([net._batch_to_device(
+            {k: v[None] if hasattr(v, "ndim") else np.asarray(v)[None]
+             for k, v in frame.items()}) for frame in padded])
         if net.device.type != "cuda":
             return outs, valid, None
         host = []

@@ -427,6 +427,18 @@ def test_sgd_step_matches_jax(jnet):
 
 
 def test_quantize_for_serving_raises():
+    """int8 serving of AdapNet is ported: ``quantize_for_serving`` raises
+    no more. At 32x48 no conv input reaches AdapNet's floor of 2048
+    positions, so it selects no conv and serving stays float, as the JAX
+    package's does; with the floor at 0 it selects JAX's convs."""
+    frames = _frames(9)
     net = get_model("adapnet")(DATA_DESCRIPTION, device="cpu", **CONFIG)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        net.quantize_for_serving(_frames(9), num_batches=1)
+    jnet = jax_model("adapnet")(data_description=DATA_DESCRIPTION, **CONFIG)
+    net.variables = from_jax_variables(
+        {k: np.asarray(v) for k, v in jnet.variables.items()}, device="cpu")
+    assert net.quantize_for_serving(frames, num_batches=1) == {}
+    assert jnet.quantize_for_serving(frames, num_batches=1) == {}
+    assert net.act_scales is None
+    got = net.quantize_for_serving(frames, num_batches=1, min_pixels=0)
+    want = jnet.quantize_for_serving(frames, num_batches=1, min_pixels=0)
+    assert got and set(got) == set(want)

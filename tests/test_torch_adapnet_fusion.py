@@ -111,8 +111,6 @@ def test_bayes_with_adapnet_experts_matches_jax():
         == jnet.predict(data, output_attr=f"{m}_classification")
         for m in MODALITIES], axis=0)
     np.testing.assert_array_equal(got[same_experts], want[same_experts])
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tnet.quantize_for_serving(data, num_batches=1)
 
 
 def test_dirichlet_with_adapnet_experts_matches_jax():

@@ -4,7 +4,8 @@ That machine has PyTorch, numpy and scipy but no JAX and none of the JAX
 package's host dependencies (cv2, PIL, sklearn, yaml, pandas, tqdm). The
 port, its experiment CLIs, datasets (the file drivers, the PNG reader and
 the native host ops among them) and settings, and ``chip_smoke.py`` must
-import without them, name none of them in an import, and load no module
+import without them (the experiment surface and the input pipeline run
+without them), name none of them in an import, and load no module
 of the JAX package; ``chip_smoke.py`` must fail, and print no
 result line, where there is no CUDA card or no repository around it.
 """
@@ -68,7 +69,13 @@ def test_port_imports_without_jax_and_its_host_deps():
                  "datasets.mixed_data", "experiments.training",
                  "experiments.evaluation", "experiments.bayes_fusion",
                  "experiments.dirichlet_fusion",
-                 "experiments.different_evaluation_parameters"):
+                 "experiments.different_evaluation_parameters",
+                 "experiments.timing", "experiments.uncertainty_eval",
+                 "experiments.finetuning",
+                 "experiments.train_and_evaluate_progressive",
+                 "experiments.ibcc_fusion", "experiments.report",
+                 "experiments.rerun", "datasets.not_cityscapes",
+                 "utils.profiling", "ops"):
         assert f"{package}.{name}" in modules, name
     script = (
         "import sys\n"
@@ -93,7 +100,9 @@ def test_importing_the_clis_writes_nothing(tmp_path):
     script = (
         "from modular_semantic_segmentation_torch.experiments import (\n"
         "    bayes_fusion, different_evaluation_parameters,\n"
-        "    dirichlet_fusion, evaluation, training)\n"
+        "    dirichlet_fusion, evaluation, finetuning, ibcc_fusion,\n"
+        "    report, rerun, timing, train_and_evaluate_progressive,\n"
+        "    training, uncertainty_eval)\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items()
            if k not in ("EXPERIMENT_STORAGE_FOLDER", "EXP_OUT",
@@ -159,6 +168,78 @@ def test_input_pipeline_runs_without_cv2_pil_sklearn_yaml(tmp_path):
     out = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_experiment_surface_runs_without_host_deps(tmp_path):
+    """The timing CLI (a single-model command, the serving group, a train
+    step), its Table V report, the uncertainty benchmark on
+    AddRandomObjects (an object library written by the port), ibcc_fusion
+    and the max unpooling run in a process where jax, pandas, yaml,
+    sklearn, cv2 and PIL cannot be imported."""
+    script = (
+        "import sys\n"
+        "for name in ('jax', 'pandas', 'yaml', 'sklearn', 'cv2', 'PIL'):\n"
+        "    sys.modules[name] = None\n"
+        "import os\n"
+        "import numpy as np, torch\n"
+        "from modular_semantic_segmentation_torch import ops, settings\n"
+        "from modular_semantic_segmentation_torch.datasets import image_io\n"
+        "from modular_semantic_segmentation_torch.experiments import (\n"
+        "    ibcc_fusion, report, timing, uncertainty_eval)\n"
+        "from modular_semantic_segmentation_torch.models import get_model\n"
+        f"base = {str(tmp_path)!r}\n"
+        "settings.EXPERIMENT_STORAGE_FOLDER = os.path.join(base, 'runs')\n"
+        "settings.DATA_BASEPATH = base\n"
+        "small = {'num_units': 2, 'num_classes': 4, 'repetitions': 1,\n"
+        "         'compute_dtype': 'float32', 'height': 32, 'width': 32,\n"
+        "         'device': 'cpu'}\n"
+        "timing.ex.run('time_rgb_fcn', config_updates=small)\n"
+        "timing.ex.run('time_serving', config_updates=dict(small,\n"
+        "    unroll=2))\n"
+        "serving = timing.ex.current_run._id\n"
+        "timing.ex.run('time_train_step', config_updates=dict(small,\n"
+        "    model='simple_fcn'))\n"
+        "assert timing.ex.current_run.info['timings']['train_step']\n"
+        "table = report.build_timing_table(serving)\n"
+        "assert table.index == ['serving_bayes_fcn'], table.index\n"
+        "for num in (251, 252, 253):\n"
+        "    d = os.path.join(base, 'amsterdam_object_lib', str(num))\n"
+        "    os.makedirs(d)\n"
+        "    obj = np.zeros((10, 12, 3), np.uint8)\n"
+        "    obj[2:8, 2:10] = num - 150\n"
+        "    image_io.imwrite(os.path.join(d, f'{num}_c.png'), obj)\n"
+        "net = dict(prefix='rgb', modality='rgb', num_units=2,\n"
+        "           channel_factor=0.125, num_samples=2, dropout_rate=0.5)\n"
+        "model = get_model('bayesian_fcn')(data_description=(\n"
+        "    {'rgb': np.float32, 'labels': np.int32},\n"
+        "    {'rgb': (None, None, 3), 'labels': (None, None)}, 4),\n"
+        "    device='cpu', **net)\n"
+        "weights = model.export_weights(base)\n"
+        "data = {'name': 'unittest', 'height': 32, 'width': 32,\n"
+        "        'num_test': 2}\n"
+        "uncertainty_eval.ex.run('main', config_updates={\n"
+        "    'modelname': 'bayesian_fcn', 'net_config': net,\n"
+        "    'starting_weights': weights, 'device': 'cpu',\n"
+        "    'benchmark': 'out_of_distribution',\n"
+        "    'uncertainty_metrics': ['entropy', 'variance'],\n"
+        "    'dataset': dict(data, name='add_random_objects',\n"
+        "                    add_to_dataset='unittest', num_classes=4)})\n"
+        "auroc = uncertainty_eval.ex.current_run.info['measurements']\n"
+        "assert 0 <= auroc['entropy']['AUROC'] <= 1, auroc\n"
+        "ibcc_fusion.ex.run('main', config_updates={\n"
+        "    'net_config': {'expert_model': 'fcn', 'num_units': 2,\n"
+        "                   'channel_factor': 0.125,\n"
+        "                   'prefixes': {'rgb': 'rgb'}},\n"
+        "    'dataset': data, 'starting_weights': {'rgb': weights},\n"
+        "    'save_to': os.path.join(base, 'ibcc'), 'device': 'cpu'})\n"
+        "x = torch.rand(1, 4, 4, 2)\n"
+        "pooled, idx = ops.max_pool_with_argmax(x)\n"
+        "assert ops.unpool_2d(pooled, idx).shape == x.shape\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
     assert out.stdout.strip().endswith("ok")
 
 

@@ -169,6 +169,32 @@ def test_initializers_match_jax():
     np.testing.assert_array_equal(store["a/kernel"].numpy(), w)
 
 
+@pytest.mark.parametrize("shape,pool", [((2, 8, 8, 3), 2),
+                                        ((1, 9, 12, 5), 3)])
+def test_max_pool_with_argmax_and_unpool_match_jax(shape, pool):
+    """Exact on tie-free input: the pooled values, TF's flattened [H*W*C]
+    indices and the unpooled tensor."""
+    rng = np.random.RandomState(3)
+    x = rng.permutation(int(np.prod(shape))).reshape(shape).astype(
+        np.float32)
+    jpooled, jidx = jll.max_pool_with_argmax(jnp.asarray(x), pool, pool)
+    pooled, idx = tll.max_pool_with_argmax(torch.from_numpy(x), pool, pool)
+    np.testing.assert_array_equal(pooled.numpy(), np.asarray(jpooled))
+    assert idx.dtype == torch.int32
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    if pool == 2:
+        np.testing.assert_array_equal(
+            tll.unpool_2d(pooled, idx).numpy(),
+            np.asarray(jll.unpool_2d(jpooled, jidx)))
+
+
+def test_ops_exports_the_jax_names():
+    import modular_semantic_segmentation_tpu.ops as jops
+    import modular_semantic_segmentation_torch.ops as tops
+    assert set(jops.__all__) - set(tops.__all__) == {"init_variables"}
+    assert tops.unpool_2d is tll.unpool_2d
+
+
 def test_cuda_device_raises_without_a_card():
     """device='cuda' on a host without a card raises instead of running
     on the CPU."""
