@@ -159,7 +159,31 @@ H100) and the CUDA toolkit. Phases, each printing its own lines:
     one), and ``ibcc_fusion`` of the two experts. Gates: the int8 AdapNet
     rows and the seeded frame launched ``_int_mm``, the AUROC in [0, 1],
     finite NLL, the translated kernels, the IBCC labels' shapes and
-    range, kernel A launched.
+    range, kernel A launched;
+19. the deployment artifact: the flagship (Bayes, bf16), the flagship
+    quantized to int8 on the 4 measure frames, and the fitted
+    DirichletFusion(use_pallas=True) exported at batch 1
+    (``serving.export_serving``, torch.export) and served by a fresh
+    process that imports torch and the kernels' operators
+    (``ExportedServing``): no module of ``models/`` loaded there, the
+    labels of the 4 frames equal in-process ``predict`` bit for bit,
+    kernel B launched inside the Dirichlet artifact (its operator's
+    count); ms/frame of ExportedServing beside InferenceServer;
+20. the parallel layer on the one card: 2 ranks sharing it over gloo
+    (``parallel.launch``), each run held against one process on the
+    card: data parallelism (the rgb expert with batch norm at 768x384,
+    global batch 2: an SGD(1.0) step under the step gate of phase 15,
+    pool routes recorded; 1 and 3 adam steps in float64, 1 in float32,
+    the 3-step and the float32 runs beside a control in one process),
+    spatial partitioning 2-way (the Bayes flagship in float32 on the 4
+    frames: labels equal up to near ties of an expert; each eval's and
+    ``score``'s counts, kernel A on each rank then summed, equal the plain
+    count of the gathered labels; an SGD(1.0)
+    step with batch norm), tensor parallelism 2-way (the rgb expert's
+    prob); NCCL with one rank (the SGD(1.0) step); in one process on
+    [cuda:0, cuda:0], ``fcn_inference_pipeline`` and ``dispatch_experts``
+    equal to ``predict``. Printed: each run's backend and the collectives
+    staged through host memory.
 
 The launch counts are set to 0 just before phase 4 and read just after
 phase 7 (confusion and Dirichlet kernels), set to 0 just before and read
@@ -167,8 +191,10 @@ just after phase 8 (stem conv), phase 10 (confusion kernel), the int8
 path of phase 11 (confusion and Dirichlet kernels, ``_int_mm``), phase
 13 (confusion kernel), phase 14's serving path (confusion and
 Dirichlet kernels) and training path (confusion kernel), phase 16
-(confusion and Dirichlet kernels), phase 17 (confusion kernel) and
-phase 18 (confusion kernel). The
+(confusion and Dirichlet kernels), phase 17 (confusion kernel),
+phase 18 (confusion kernel), the artifacts' loader of phase 19 (its own
+process; confusion and Dirichlet kernels) and each rank of phase 20
+(confusion kernel); the kernels' line counts phases 4-7, 19 and 20. The
 third-to-last line is the int8 product's JSON record (a library call,
 not a kernel of the port), the second-to-last the kernels' and the last
 ``{"ok": true, "device": {...}}``. Any fault exits non-zero with no
@@ -2652,6 +2678,487 @@ def experiment_surface(card):
     return launches
 
 
+# phase 19, the deployment artifact: three programs of the flagship's
+# width exported (torch.export) and served by a fresh process that loads
+# no model module
+ARTIFACTS = ("bayes", "bayes_int8", "dirichlet")
+
+
+def serve_artifacts(directory, names, inputs):
+    """The loader's side of phase 19, run in a fresh process: each
+    artifact under ``directory`` served frame by frame over ``inputs``
+    (an npz of the frames) by ``ExportedServing``; its labels saved
+    beside it, and one JSON line printed: the modules of ``models/``
+    loaded (none may be), kernel B's and A's launches in each program
+    (the operators' counts), and ms/frame of three runs after a
+    warm-up."""
+    from modular_semantic_segmentation_torch.ops.cuda import (
+        confusion, dirichlet)
+    from modular_semantic_segmentation_torch.serving import ExportedServing
+    frames = dict(np.load(inputs))
+    count = len(frames["rgb"])
+    one = [{m: frames[m][i:i + 1] for m in MODALITIES} for i in range(count)]
+    report = {"launches": {}, "ms": {}}
+    for name in names:
+        served = ExportedServing(os.path.join(directory, name))
+        before = dirichlet.KERNEL.launches, confusion.KERNEL.launches
+        labels = np.concatenate([served.predict(frame) for frame in one])
+        report["launches"][name] = {
+            "dirichlet": dirichlet.KERNEL.launches - before[0],
+            "confusion": confusion.KERNEL.launches - before[1]}
+        np.save(os.path.join(directory, name, "labels.npy"), labels)
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            for frame in one:
+                served.predict(frame)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - start) * 1e3 / count)
+        report["ms"][name] = times
+    report["models"] = sorted(
+        m for m in sys.modules
+        if m.startswith("modular_semantic_segmentation_torch.models"))
+    print(json.dumps(report))
+
+
+def deployment_artifact(bayes, dirich, experts, cms, frames, serve_frames,
+                        card):
+    """Phase 19: the flagship (Bayes, bf16), the flagship quantized to
+    int8 on the measure frames, and the fitted Dirichlet fusion
+    (``use_pallas``, bf16) exported at batch 1; a fresh process serves
+    the measure frames through each artifact, whose labels must equal
+    in-process ``predict`` bit for bit (kernel B's held against its plain
+    version there); kernel B must launch inside the Dirichlet artifact.
+    Returns the kernels' launches in the artifacts."""
+    import tempfile
+    from modular_semantic_segmentation_torch.serving import export_serving
+    int8 = fusion_model("bayes_fusion", experts, confusion_matrices=cms,
+                        compute_dtype="bfloat16")
+    int8.quantize_for_serving(frames, num_batches=MEASURE_FRAMES)
+    models = {"bayes": bayes, "bayes_int8": int8, "dirichlet": dirich}
+    example = {m: frames[m][:1] for m in MODALITIES}
+    want, export_s, server_ms = {}, {}, {}
+    with tempfile.TemporaryDirectory() as directory:
+        for name, net in models.items():
+            start = time.perf_counter()
+            export_serving(net, os.path.join(directory, name), example)
+            export_s[name] = time.perf_counter() - start
+            _, server_ms[name] = serve(net, serve_frames)
+        with KernelChecks() as checks:
+            for name, net in models.items():
+                want[name] = np.concatenate([
+                    net.predict({m: frames[m][i:i + 1] for m in MODALITIES})
+                    for i in range(MEASURE_FRAMES)])
+        inputs = os.path.join(directory, "frames.npz")
+        np.savez(inputs, **{m: frames[m] for m in MODALITIES})
+        here = os.path.dirname(os.path.abspath(__file__))
+        code = ("import sys\n"
+                f"sys.path.insert(0, {here!r})\n"
+                "import chip_smoke\n"
+                f"chip_smoke.serve_artifacts({directory!r}, {ARTIFACTS!r}, "
+                f"{inputs!r})\n")
+        start = time.perf_counter()
+        result = subprocess.run([sys.executable, "-c", code],
+                                capture_output=True, text=True, timeout=600)
+        loader_s = time.perf_counter() - start
+        check(result.returncode == 0, "the artifacts' loader failed:\n"
+              + result.stderr[-4000:])
+        report = json.loads(result.stdout.strip().splitlines()[-1])
+        got = {name: np.load(os.path.join(directory, name, "labels.npy"))
+               for name in ARTIFACTS}
+    check(report["models"] == [], f"the artifacts' loader imported "
+          f"{report['models']}")
+    for name in ARTIFACTS:
+        check_labels(got[name], f"{name} artifact", count=MEASURE_FRAMES)
+        check(np.array_equal(got[name], want[name]), f"the {name} artifact's "
+              "labels differ from in-process predict")
+    b_launches = report["launches"]["dirichlet"]["dirichlet"]
+    check(b_launches >= MEASURE_FRAMES, f"kernel B launched {b_launches} "
+          f"times inside the Dirichlet artifact for {MEASURE_FRAMES} frames")
+    check(checks.labels > 0, "no kernel B label was held against its plain "
+          "version in phase 19")
+    check(not np.array_equal(got["bayes_int8"], got["bayes"]),
+          "the int8 artifact gives the bf16 artifact's labels")
+    for name in ARTIFACTS:
+        print(f"deployment artifact {name}: exported in {export_s[name]:.1f}"
+              f" s; labels of {MEASURE_FRAMES} frames equal in-process "
+              f"predict; ExportedServing {_runs(report['ms'][name])} ms/frame"
+              f" (batch 1, a fresh process; numpy in and out), "
+              f"InferenceServer {_runs(server_ms[name])} ms/frame (unroll "
+              f"{UNROLL}) over {SERVE_FRAMES} frames; kernel B launches in "
+              f"the artifact {report['launches'][name]['dirichlet']}; "
+              f"{HEIGHT}x{WIDTH}, bf16 on {card}")
+    print(f"deployment artifact: loader process {loader_s:.1f} s, no module "
+          f"of models/ loaded; kernel B labels held against its plain "
+          f"version in-process: {checks.labels}")
+    return {"dirichlet": sum(r["dirichlet"]
+                             for r in report["launches"].values()),
+            "confusion": sum(r["confusion"]
+                             for r in report["launches"].values())}
+
+
+# phase 20, the parallel layer on the one card: 2 ranks sharing it over
+# gloo, the single-process pipeline and expert dispatch, and NCCL with one
+# rank
+PARALLEL_RANKS = 2
+PARALLEL_ADAM_STEPS = 3
+# (steps, dtype) of the adam runs, data-parallel and in one process
+ADAM_RUNS = ((1, torch.float64), (PARALLEL_ADAM_STEPS, torch.float64),
+             (1, torch.float32))
+# the runs held against a control, one process with the batch in the
+# other order
+CONTROL_RUNS = ADAM_RUNS[1:]
+# adam's update is lr * m / sqrt(v): an element whose gradient lies
+# within rounding of 0 steps by up to lr either way in one run and the
+# other; the share of elements that may lie farther than STEP_ATOL of
+# their tensor's scale from one process's after one step
+ADAM_NOISE_SHARE = 1e-4
+
+
+def _parallel_expert(batchsize=PARALLEL_RANKS):
+    """The flagship's rgb expert with batch norm (seed 0), adam 1e-3, for
+    the parallel phase's steps."""
+    from modular_semantic_segmentation_torch.models import get_model
+    return get_model("simple_fcn")(
+        prefix="rgb", data_description=DATA_DESCRIPTION, modality="rgb",
+        num_units=NUM_UNITS, batch_normalization=True, seed=0,
+        learning_rate=1e-3, batchsize=batchsize)
+
+
+def adam_steps(net, batch, steps, dtype=torch.float32):
+    """``steps`` adam steps of ``net`` on ``batch`` with its variables and
+    convs in ``dtype``: (losses, {trainable name: delta over the steps,
+    numpy})."""
+    from modular_semantic_segmentation_torch.ops.variables import \
+        split_trainable
+    net.compute_dtype = dtype
+    net.variables = {k: v.to(dtype) for k, v in net.variables.items()}
+    net.opt_state = net._optimizer.init(
+        split_trainable(net.variables, net.trainable)[0])
+    start = dict(net.variables)
+    losses = []
+    for _ in range(steps):
+        net.variables, net.opt_state, loss = net._train_step(
+            net.variables, net.opt_state, batch)
+        losses.append(float(loss))
+    return losses, {k: (net.variables[k] - start[k]).cpu().numpy()
+                    for k, train in net.trainable.items() if train}
+
+
+def _global_routes(routes, axis, dim):
+    """Max-pool argmax indices of this rank's block as indices of the
+    global tensor (their flat h * W + w index offset by the rows before
+    the block when the height is split, ``dim`` 2 of NCHW), gathered
+    from every rank along ``axis``, on the host."""
+    from modular_semantic_segmentation_torch.parallel import collectives
+    out = []
+    for r in routes:
+        r = r.cuda()
+        if dim == 2:
+            # the pool's input block holds 2 * h rows of 2 * w columns
+            r = r + axis.index * (2 * r.shape[2]) * (2 * r.shape[3])
+        out.append(collectives.all_gather_(r, axis, dim).cpu())
+    return out
+
+
+def _step_result(step, routes):
+    """An ``sgd_step`` result to send to the parent, its routes the
+    gathered ones."""
+    return (step[0], {k: v.numpy() for k, v in step[1].items()}, routes,
+            {k: v.numpy() for k, v in step[3].items()})
+
+
+def parallel_rank(frames, cms):
+    """Phase 20 on one rank of ``PARALLEL_RANKS`` sharing the card over
+    gloo: data parallelism (in float64, an SGD(1.0) step with its pool
+    routes, 1 and 3 adam steps; in float32, 1 adam step), spatial
+    partitioning 2-way (the float32 Bayes flagship served with each
+    frame's confusion counts, and scored; a
+    float64 SGD(1.0) step of the rgb expert with batch norm), tensor
+    parallelism 2-way (the rgb expert served). Rank 0 returns the
+    results; every rank its backend, staged collectives and kernel A's
+    launches."""
+    import torch.distributed as dist
+    from modular_semantic_segmentation_torch.ops.cuda import confusion
+    from modular_semantic_segmentation_torch.parallel import (
+        distribute, distribute_spatial, distribute_tp, make_mesh)
+    confusion.KERNEL.launches = 0
+    out = {"backend": dist.get_backend()}
+    batch = {k: frames[k][:PARALLEL_RANKS] for k in ("rgb", "labels")}
+    data = make_mesh({"data": PARALLEL_RANKS})
+    step = sgd_step(distribute(_parallel_expert(), data), batch,
+                    torch.float64)
+    out["dp_sgd64"] = _step_result(step, _global_routes(
+        step[2], data.axis("data"), 0))
+    for steps, dtype in ADAM_RUNS:
+        out[f"dp_adam_{steps}_{dtype}"] = adam_steps(
+            distribute(_parallel_expert(), data), batch, steps, dtype)
+    # spatial, 2-way: the Bayes flagship in float32, and a train step
+    sp = make_mesh({"sp": PARALLEL_RANKS})
+    bayes = distribute_spatial(fusion_model(
+        "bayes_fusion", build_experts(), confusion_matrices=cms), sp,
+        axis="sp")
+    evals = [bayes._eval_step(bayes._batch_to_device(
+        {k: v[i:i + 1] for k, v in frames.items()}))
+        for i in range(MEASURE_FRAMES)]
+    out["sp_bayes"] = {k: np.concatenate([e[k].cpu().numpy() for e in evals])
+                       for k in ("prediction", "rgb_classification",
+                                 "depth_classification")}
+    # each frame's counts: kernel A on each rank's block, summed
+    out["sp_bayes"]["confusion_matrix"] = np.stack(
+        [e["confusion_matrix"].cpu().numpy() for e in evals])
+    out["sp_score"] = bayes.score(frames)[1]
+    step = sgd_step(distribute_spatial(_parallel_expert(batchsize=1), sp,
+                                       axis="sp"),
+                    {k: frames[k][:1] for k in ("rgb", "labels")},
+                    torch.float64)
+    out["sp_sgd64"] = _step_result(step, _global_routes(
+        step[2], sp.axis("sp"), 2))
+    # tensor parallel, 2-way: the flagship's rgb expert (no batch norm)
+    tp = make_mesh({"data": 1, "model": PARALLEL_RANKS})
+    expert = distribute_tp(build_experts()["rgb"], tp)
+    out["tp_prob"] = expert.predict({"rgb": frames["rgb"][:1]},
+                                    output_attr="prob")
+    out["staged"] = sorted(data.staged | sp.staged | tp.staged)
+    out["launches"] = confusion.KERNEL.launches
+    if dist.get_rank():
+        out = {k: out[k] for k in ("backend", "staged", "launches")}
+    return out
+
+
+def nccl_rank(batch):
+    """Phase 20's NCCL run, one rank on the card: the data-parallel
+    float64 SGD(1.0) step of the rgb expert with batch norm."""
+    import torch.distributed as dist
+    from modular_semantic_segmentation_torch.parallel import (
+        distribute, make_mesh)
+    net = distribute(_parallel_expert(), make_mesh({"data": 1}))
+    step = sgd_step(net, batch, torch.float64)
+    return dist.get_backend(), _step_result(step, step[2])
+
+
+def _as_step(result):
+    """A rank's step result in ``step_errors``' form."""
+    loss, deltas, routes, moving = result
+    return (loss, {k: torch.from_numpy(v) for k, v in deltas.items()},
+            list(routes), {k: torch.from_numpy(v) for k, v in moving.items()})
+
+
+def _gate_step(got, want, what):
+    """One process's float64 step on the card against a distributed one,
+    the gate of phase 15 (``train_step_check``) against float64: the loss
+    within STEP_LOSS_RTOL, every tensor's delta within STEP_ATOL of its
+    scale and within ARITHMETIC_ATOL after the deepest pool that routes a
+    near tie differently, every moving statistic's update within
+    ARITHMETIC_ATOL of its scale."""
+    rel = abs(got[0] - want[0]) / abs(want[0])
+    check(rel <= STEP_LOSS_RTOL, f"{what}: loss {got[0]}, one process "
+          f"{want[0]}")
+    worst, name, clean, clean_name, routes = step_errors(got, want)
+    check(worst <= STEP_ATOL and clean <= ARITHMETIC_ATOL,
+          f"{what}: {name} {worst}, {clean_name} {clean} of its scale "
+          f"(rerouted pool windows {routes})")
+    moving, moving_name = moving_error(got, want)
+    check(moving <= ARITHMETIC_ATOL, f"{what}: {moving_name}'s update "
+          f"differs by {moving} of its scale")
+    return (f"loss relative difference {rel:.3g}; largest delta difference "
+            f"{worst:.3g} of its tensor's scale ({name}; limit "
+            f"{STEP_ATOL:g}), {clean:.3g} after the rerouted pools "
+            f"({clean_name}; limit {ARITHMETIC_ATOL:g}), pool windows routed "
+            f"differently {routes}; moving statistics within {moving:.3g} "
+            f"({moving_name})")
+
+
+def _adam_distance(got, want):
+    """How far one adam run's deltas lie from another's: (largest
+    difference over its tensor's largest |delta|, at least 1e-3, as
+    ``step_errors`` scales it; that tensor; elements with the other
+    sign; elements farther than STEP_ATOL of their tensor's scale;
+    elements)."""
+    worst, name, flipped, beyond, total = 0.0, "", 0, 0, 0
+    for k, ref in want.items():
+        scale = max(float(np.abs(ref).max()), 1e-3)
+        diff = np.abs(got[k] - ref) / scale
+        flipped += int((np.sign(got[k]) != np.sign(ref)).sum())
+        beyond += int((diff > STEP_ATOL).sum())
+        total += ref.size
+        if float(diff.max()) > worst:
+            worst, name = float(diff.max()), k
+    return worst, name, flipped, beyond, total
+
+
+def parallel_layer(experts, bayes, cms, frames, card):
+    """Phase 20 (see ``parallel_rank``), each run held against one
+    process on the card; returns kernel A's launches in the ranks.
+
+    The float64 steps hold the distributed arithmetic (the summed batch
+    norm statistics, loss and gradients; the halo exchange and its
+    transpose) to the gate of phase 15. Adam, whose first step is
+    lr * sign(gradient), moves the few elements with a gradient within
+    rounding of 0 by up to lr either way (ADAM_NOISE_SHARE after one
+    float64 step). Over 3 float64 steps the trajectory itself amplifies
+    such differences, and in float32 one step with train-mode batch norm
+    already moves far more elements by lr either way: for these runs the
+    control runs one process with the batch in the other order (the same
+    sums, another rounding), and the data-parallel run may differ from
+    one process on at most twice as many elements as the control does. Every count of
+    kernel A in the ranks is held against the plain count of the
+    gathered labels: each spatial eval's and the spatial score's."""
+    from modular_semantic_segmentation_torch.ops.cuda.confusion import \
+        confusion_counts_plain
+    from modular_semantic_segmentation_torch.parallel import (
+        dispatch_experts, fcn_inference_pipeline, launch)
+    batch = {k: frames[k][:PARALLEL_RANKS] for k in ("rgb", "labels")}
+    one = {k: frames[k][:1] for k in ("rgb", "labels")}
+    # one process on the card first
+    start_s = time.perf_counter()
+    single_sgd = sgd_step(_parallel_expert(), batch, torch.float64)
+    single_adam = {(steps, dtype): adam_steps(_parallel_expert(), batch,
+                                              steps, dtype)
+                   for steps, dtype in ADAM_RUNS}
+    # the control: one process, the batch in the other order (the same
+    # sums, rounded in another order)
+    reversed_batch = {k: v[::-1].copy() for k, v in batch.items()}
+    control = {run: adam_steps(_parallel_expert(), reversed_batch, *run)
+               for run in CONTROL_RUNS}
+    sp_single = sgd_step(_parallel_expert(batchsize=1), one, torch.float64)
+    plain_bayes = fusion_model("bayes_fusion", experts,
+                               confusion_matrices=cms)
+    evals = [plain_bayes._eval_step(plain_bayes._batch_to_device(
+        {k: v[i:i + 1] for k, v in frames.items()}))
+        for i in range(MEASURE_FRAMES)]
+    plain = {k: np.concatenate([e[k].cpu().numpy() for e in evals])
+             for k in ("prediction", "rgb_classification",
+                       "depth_classification", "rgb_prob", "depth_prob")}
+    tp_want = experts["rgb"].predict({"rgb": frames["rgb"][:1]},
+                                     output_attr="prob")
+    del plain_bayes, evals
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - start_s
+    start_s = time.perf_counter()
+    ranks = launch(parallel_rank, PARALLEL_RANKS, args=(frames, cms),
+                   backend="gloo", device="cuda")
+    gloo_s = time.perf_counter() - start_s
+    r0 = ranks[0]
+    print(f"parallel, on {card}: one process's references {single_s:.1f} "
+          f"s; {PARALLEL_RANKS} ranks on one card, backend "
+          f"{', '.join(sorted({r['backend'] for r in ranks}))}, collectives "
+          f"staged through host memory: "
+          f"{', '.join(r0['staged']) or 'none'}; {gloo_s:.1f} s with "
+          f"start-up")
+    # data parallel
+    summary = _gate_step(_as_step(r0["dp_sgd64"]), single_sgd,
+                         "data-parallel float64 SGD(1.0) step")
+    print(f"parallel, data (gloo, 2 ranks, global batch {PARALLEL_RANKS}, "
+          f"{HEIGHT}x{WIDTH}, batch norm): float64 SGD(1.0) step against "
+          f"one process: {summary}")
+    control_beyond = {run: _adam_distance(control[run][1],
+                                          single_adam[run][1])[3]
+                      for run in CONTROL_RUNS}
+    for steps, dtype in ADAM_RUNS:
+        losses, deltas = r0[f"dp_adam_{steps}_{dtype}"]
+        want_losses, want = single_adam[steps, dtype]
+        loss_rtol = STEP_LOSS_RTOL * (1 if dtype == torch.float64 else 10)
+        for a, b in zip(losses, want_losses):
+            check(abs(a - b) <= loss_rtol * abs(b),
+                  f"data-parallel adam steps ({steps}, {dtype}): losses "
+                  f"{losses}, one process {want_losses}")
+        worst, name, flipped, beyond, total = _adam_distance(deltas, want)
+        limit = ADAM_NOISE_SHARE * total
+        if (steps, dtype) in control_beyond:
+            limit = max(2 * control_beyond[steps, dtype], limit)
+        check(beyond <= limit, f"data-parallel adam steps ({steps}, "
+              f"{dtype}): {beyond} of {total} elements differ by more "
+              f"than {STEP_ATOL:g} of their tensor's scale (limit "
+              f"{limit:g})")
+        print(f"parallel, data: {steps} adam step(s) in {dtype}: losses "
+              f"{_runs(losses)} (one process {_runs(want_losses)}; limit "
+              f"{loss_rtol:g} relative); {beyond} of {total} elements "
+              f"farther than {STEP_ATOL:g} of their tensor's scale from "
+              f"one process's (limit {limit:g}), {flipped} with the other "
+              f"sign; largest difference {worst:.3g} ({name})")
+    for (steps, dtype), beyond in control_beyond.items():
+        print(f"parallel, data: the control, one process with the batch in "
+              f"the other order, {steps} adam step(s) in {dtype}: {beyond} "
+              f"of {total} elements farther than {STEP_ATOL:g} of their "
+              f"tensor's scale from the first order's")
+    # spatial: labels, counts, a step
+    got = r0["sp_bayes"]
+    differ = got["prediction"] != plain["prediction"]
+    expert_differs = np.zeros_like(differ)
+    for m in MODALITIES:
+        d = got[f"{m}_classification"] != plain[f"{m}_classification"]
+        expert_differs |= d
+        if d.any():
+            gap = tie_gaps(torch.from_numpy(plain[f"{m}_prob"]),
+                           torch.from_numpy(got[f"{m}_classification"]),
+                           torch.from_numpy(plain[f"{m}_classification"]))
+            check(bool((gap <= TIE_RTOL).all()), f"spatial Bayes: the {m} "
+                  "expert's labels differ beyond near ties")
+    check(not (differ & ~expert_differs).any(), "spatial Bayes: a fused "
+          "label differs where no expert's does")
+    for i in range(MEASURE_FRAMES):
+        counts = confusion_counts_plain(
+            torch.from_numpy(got["prediction"][i:i + 1]),
+            torch.from_numpy(frames["labels"][i:i + 1]), NUM_CLASSES).numpy()
+        check(np.array_equal(got["confusion_matrix"][i],
+                             counts.astype(np.float32)),
+              f"spatial eval of frame {i}: kernel A's summed counts differ "
+              "from the plain count of the gathered labels")
+    counts = confusion_counts_plain(
+        torch.from_numpy(got["prediction"]),
+        torch.from_numpy(frames["labels"]), NUM_CLASSES).numpy()
+    check(np.array_equal(r0["sp_score"], counts.astype(np.float32)),
+          "spatial score: kernel A's summed counts differ from the plain "
+          "count of the gathered labels")
+    summary = _gate_step(_as_step(r0["sp_sgd64"]), sp_single,
+                         "spatial float64 SGD(1.0) step")
+    print(f"parallel, spatial (gloo, 2 ranks of {HEIGHT // 2} rows): Bayes "
+          f"float32 labels of {MEASURE_FRAMES} frames: {int(differ.sum())} "
+          f"differ from one process, each where an expert's label is a near "
+          f"tie (within {TIE_RTOL:g}); each eval's and score's counts "
+          f"(kernel A on each rank, summed) equal the plain count of the "
+          f"gathered labels; "
+          f"float64 SGD(1.0) step with batch norm against one process: "
+          f"{summary}")
+    err = float(np.abs(r0["tp_prob"] - tp_want).max())
+    check(err <= 1e-5, f"tensor parallel: prob differs by {err}")
+    print(f"parallel, tensor (gloo, 2 ranks, channel shards): rgb expert "
+          f"prob within {err:.3g} of one process (limit 1e-5)")
+    # NCCL with one rank
+    start_s = time.perf_counter()
+    backend, nccl = launch(nccl_rank, 1, args=(batch,), backend="nccl",
+                           device="cuda")[0]
+    summary = _gate_step(_as_step(nccl), single_sgd,
+                         "NCCL data-parallel step")
+    print(f"parallel, data ({backend}, 1 rank, "
+          f"{time.perf_counter() - start_s:.1f} s with start-up): float64 "
+          f"SGD(1.0) step against one process: {summary}")
+    # one process over [cuda:0, cuda:0]
+    expert = experts["rgb"]
+    micro = [{"rgb": frames["rgb"][i:i + 1]} for i in range(MEASURE_FRAMES)]
+    pipe = fcn_inference_pipeline(expert, devices=["cuda:0", "cuda:0"])
+    pipe(micro)
+    torch.cuda.synchronize()
+    start_s = time.perf_counter()
+    got = pipe(micro)
+    pipe_ms = (time.perf_counter() - start_s) * 1e3 / MEASURE_FRAMES
+    check(np.array_equal(got, expert.predict({"rgb": frames["rgb"]})),
+          "the pipeline's labels differ from predict")
+    first = {m: frames[m][:1] for m in MODALITIES}
+    outputs = dispatch_experts(bayes, first, devices=["cuda:0", "cuda:0"])
+    for m in MODALITIES:
+        check(np.array_equal(outputs[m]["prob"], bayes.predict(
+            first, output_attr=f"{m}_prob")), f"dispatch_experts: the {m} "
+            "expert's prob differs from predict")
+    print(f"parallel, one process on [cuda:0, cuda:0]: "
+          f"fcn_inference_pipeline labels of {MEASURE_FRAMES} frames equal "
+          f"predict ({pipe_ms:.3f} ms/frame, float32); dispatch_experts "
+          f"probabilities equal the Bayes flagship's (bf16) on {card}")
+    return sum(r["launches"] for r in ranks)
+
+
 def main():
     times = {}
 
@@ -2832,6 +3339,27 @@ def main():
     print(f"experiment surface path: confusion launches {surface_launches}")
     check(surface_launches > 0, "the experiment surface launched no "
           "confusion kernel")
+    # ---- the deployment artifact's path: its launches are counted by the
+    # loader process's operators, from 0
+    artifact_launches = timed("deployment artifact", deployment_artifact,
+                              bayes, dirich, experts, cms, frames,
+                              serve_frames, smi_line)
+    # ---- end of the deployment artifact's path
+    print(f"deployment artifact path: dirichlet launches "
+          f"{artifact_launches['dirichlet']}, confusion launches "
+          f"{artifact_launches['confusion']}")
+    # ---- the parallel layer's path: kernel A's count is set to 0 in each
+    # rank and read there
+    parallel_launches = timed("parallel", parallel_layer, experts, bayes,
+                              cms, frames, smi_line)
+    # ---- end of the parallel layer's path
+    print(f"parallel path: confusion launches {parallel_launches} (the "
+          f"ranks' sum)")
+    check(parallel_launches > 0, "the parallel ranks launched no confusion "
+          "kernel")
+    launches["dirichlet"] += artifact_launches["dirichlet"]
+    launches["confusion"] += (artifact_launches["confusion"]
+                              + parallel_launches)
     for record in records:
         record["launches"] = launches[record["name"]]
         check(record["launches"] > 0,

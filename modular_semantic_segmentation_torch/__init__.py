@@ -18,7 +18,10 @@ Layout:
                 UncertaintyModel and BayesianFCN; int8 post-training
                 quantization (quantize, packed_experts)
     utils/      host-side batch plumbing, event-file writer, profiling
-    serving.py  frame-at-a-time inference server
+    serving.py  frame-at-a-time inference server and the deployment
+                artifact (export_serving / ExportedServing)
+    parallel/   meshes over torch.distributed ranks: data, tensor and
+                spatial parallelism, pipeline and expert dispatch
 
 Public tensors are NHWC, as in the JAX package. Entry points take a
 ``device`` argument that defaults to ``"cuda"``; pass ``"cpu"`` to run the
@@ -30,6 +33,15 @@ and nothing of JAX or of the JAX package.
 
 __version__ = "0.1.0"
 
-from modular_semantic_segmentation_torch.models import get_model  # noqa: F401
-from modular_semantic_segmentation_torch.models.quantize import (  # noqa: F401
-    calibrate_amax, select_scales)
+_EXPORTS = {"get_model": "models", "calibrate_amax": "models.quantize",
+            "select_scales": "models.quantize"}
+
+
+def __getattr__(name):
+    """Lazy exports (PEP 562), so that importing a module of the package
+    (``serving`` for an exported program) loads no model module."""
+    if name in _EXPORTS:
+        import importlib
+        module = importlib.import_module(f"{__name__}.{_EXPORTS[name]}")
+        return getattr(module, name)
+    raise AttributeError(name)

@@ -76,7 +76,8 @@ class BayesianFCN(UncertaintyModel):
                      dropout_rate=cfg["dropout_rate"],
                      dropout_layers=cfg["dropout_layers"])
         log_prob = ll.log_softmax(layers["score"])
-        return {"loss": cross_entropy(log_prob, batch["labels"])}
+        return {"loss": cross_entropy(log_prob, batch["labels"],
+                                      axis_name=ctx.sharded_axes)}
 
     def _test_outputs(self, ctx, batch):
         cfg = self.config

@@ -28,6 +28,16 @@ Subclass contract:
         one-hot, float32)
     _test_outputs(ctx, batch) -> dict with 'prediction' (+ 'prob', ...)
 An eval-only model (``custom_training=True``) needs no _train_outputs.
+
+The parallel layer (``parallel/``) distributes a model over the ranks of
+a mesh by setting ``_parallel`` (``distribute``, ``distribute_spatial``,
+``distribute_tp``), where the JAX package re-jits its steps with
+shardings. Each rank then runs the same steps on its block of each global
+batch (``_parallel.shard``) in a context over the mesh's axes
+(``_parallel.ctx_kwargs``); the train step averages the gradients over
+the axes (``_parallel.reduce_grads``), ``predict`` gathers the outputs,
+and ``score`` sums the ranks' counts. The distribution survives
+``quantize_for_serving`` / ``dequantize_serving``.
 """
 
 import json
@@ -49,21 +59,11 @@ from modular_semantic_segmentation_torch.ops.layers import configure_float32
 from modular_semantic_segmentation_torch.ops.losses import one_hot
 from modular_semantic_segmentation_torch.ops.variables import (
     Ctx, resolve_device, resolve_dtype, split_trainable)
-from modular_semantic_segmentation_torch.utils.data_io import (
+# to_numpy: imported from here by the models too
+from modular_semantic_segmentation_torch.utils.data_io import (  # noqa: F401
     iterate_batches, prefetch_eval_batches, to_device_prefetched,
-    training_batches)
+    to_numpy, training_batches)
 from modular_semantic_segmentation_torch.utils.tfevents import EventWriter
-
-
-def to_numpy(value):
-    """Host numpy copy of a tensor; bfloat16 comes back as float32, which
-    numpy has no type for."""
-    if not isinstance(value, torch.Tensor):
-        return np.asarray(value)
-    value = value.detach()
-    if value.dtype == torch.bfloat16:
-        value = value.float()
-    return value.cpu().numpy()
 
 
 def _remat(loss_fn, generator):
@@ -144,6 +144,9 @@ class Estimator:
         self.device = resolve_device(device)
         self.global_step = 0
         self._kernel_cache = {}
+        # the parallel layer's distribution over a mesh (parallel/); None
+        # on one device
+        self._parallel = None
         # int8 PTQ serving: None = float path; set by quantize_for_serving
         self.act_scales = None
         configure_float32()
@@ -234,7 +237,12 @@ class Estimator:
         recomputes, since ``torch.utils.checkpoint`` does not restore a
         generator's state."""
         augmentation = self.config.get("device_augmentation")
+        axes = self._parallel_ctx()
         if augmentation:
+            if axes.get("spatial_axis") is not None:
+                raise NotImplementedError(
+                    "device_augmentation resamples across the height axis "
+                    "and cannot run under spatial partitioning")
             with torch.no_grad():
                 batch = device_augment.augment_batch(self._generator, batch,
                                                      **augmentation)
@@ -249,7 +257,7 @@ class Estimator:
             ctx = Ctx({**frozen_vars, **tvars},
                       compute_dtype=self.compute_dtype,
                       kernel_cache=self._kernel_cache,
-                      generator=self._generator, train=True)
+                      generator=self._generator, train=True, **axes)
             out = self._train_outputs(ctx, train_batch)
             return out["loss"], ctx.updates
 
@@ -262,8 +270,16 @@ class Estimator:
                                          materialize_grads=True)
                      if leaves else ())
         weight = torch.sum(train_batch["labels"])
+        if self._parallel is not None:
+            # the non-void pixel count of the global (micro)batch
+            self._parallel.sum_(weight)
         return (loss.detach(), weight, bn_updates,
                 dict(zip(leaves, grads)))
+
+    def _parallel_ctx(self):
+        """The mesh axes of this rank's contexts (``Ctx`` keyword
+        arguments); none on one device."""
+        return {} if self._parallel is None else self._parallel.ctx_kwargs
 
     def _train_step(self, variables, opt_state, batch):
         """One optimizer step: (new variables, new optimizer state, loss).
@@ -278,8 +294,14 @@ class Estimator:
         statistics take the mean of the microbatches' updates.
         """
         batch = self._batch_to_device(batch)
+        if self._parallel is not None:
+            batch = self._parallel.shard(batch)
         micro = int(self.config.get("microbatch_size") or 0)
         batchsize = int(next(iter(batch.values())).shape[0])
+        if micro and "spatial_axis" in self._parallel_ctx():
+            raise NotImplementedError(
+                "microbatch_size does not compose with spatial "
+                "partitioning (distribute_spatial)")
         if micro and batchsize % micro:
             raise ValueError(f"microbatch_size={micro} must divide the "
                              f"batch size ({batchsize})")
@@ -304,6 +326,8 @@ class Estimator:
         else:
             loss, _, bn_updates, grads = self._microbatch_grads(variables,
                                                                 batch)
+        if self._parallel is not None:
+            grads = self._parallel.reduce_grads(grads)
         train_vars, _ = split_trainable(variables, self.trainable)
         updates, opt_state = self._optimizer.update(grads, opt_state)
         train_vars = optimizers.apply_updates(train_vars, updates)
@@ -320,18 +344,28 @@ class Estimator:
         with torch.inference_mode():
             ctx = Ctx(self.variables, compute_dtype=self.compute_dtype,
                       kernel_cache=self._kernel_cache,
-                      generator=self._generator, act_scales=act_scales)
+                      generator=self._generator, act_scales=act_scales,
+                      **self._parallel_ctx())
             return self._test_outputs(ctx, self._preprocess(batch))
 
     def _eval_step(self, batch):
         """Test outputs and, with labels in the batch, its confusion
-        matrix."""
-        out = self._forward(batch)
+        matrix, for a batch on the device. Distributed, the outputs are
+        the gathered global ones and the counts the ranks' sum."""
+        local = batch if self._parallel is None else self._parallel.shard(
+            batch)
+        out = self._forward(local)
         if "labels" in batch:
             with torch.inference_mode():
-                out["confusion_matrix"] = metrics_lib.confusion_matrix(
-                    out["prediction"], batch["labels"],
+                counts = metrics_lib.confusion_counts(
+                    out["prediction"], local["labels"],
                     self.config["num_classes"])
+                if self._parallel is not None:
+                    self._parallel.sum_(counts)
+                out["confusion_matrix"] = counts.float()
+        if self._parallel is not None:
+            out = {k: v if k == "confusion_matrix" else
+                   self._parallel.gather(v) for k, v in out.items()}
         return out
 
     # ------------------------------------------------------------------- fit
@@ -431,9 +465,14 @@ class Estimator:
         attr = output_attr or "prediction"
         outputs = []
         for batch, valid in iterate_batches(data, self.config["batchsize"]):
-            out = self._forward(self._batch_to_device(batch))
+            batch = self._batch_to_device(batch)
+            if self._parallel is not None:
+                batch = self._parallel.shard(batch)
+            out = self._forward(batch)
             if attr in out:
                 value = out[attr]
+                if self._parallel is not None:
+                    value = self._parallel.gather(value)
             elif hasattr(self, attr):
                 value = getattr(self, attr)
             else:
@@ -450,10 +489,12 @@ class Estimator:
         Batches come padded from a producer thread that copies them to the
         device ahead of the step (``prefetch_eval_batches``). Each batch's
         counts go into one [K, K] int64 accumulator on the device, one
-        kernel launch a batch (``confusion_accumulate``); the total is
-        read back once and cast to float32 on the host. That equals the
-        JAX package's float32 running sum wherever every bin is under
-        2**24; above it, JAX's sum rounds and this one stays exact."""
+        kernel launch a batch (``confusion_accumulate``; distributed, of
+        this rank's block, and the ranks' totals are then summed); the
+        total is read back once and cast to float32 on the host. That
+        equals the JAX package's float32 running sum wherever every bin
+        is under 2**24; above it, JAX's sum rounds and this one stays
+        exact."""
         num_classes = self.config["num_classes"]
         count = 0
         batches = prefetch_eval_batches(data, self.config["batchsize"],
@@ -463,6 +504,8 @@ class Estimator:
                 total = torch.zeros((num_classes, num_classes),
                                     dtype=torch.int64, device=self.device)
                 for batch, _ in batches:
+                    if self._parallel is not None:
+                        batch = self._parallel.shard(batch)
                     out = self._forward(batch)
                     metrics_lib.confusion_accumulate(
                         out["prediction"], batch["labels"], num_classes,
@@ -471,6 +514,9 @@ class Estimator:
                     if (max_iterations is not None
                             and count >= max_iterations):
                         break
+                if self._parallel is not None:
+                    # each rank counted its block (kernel A); the sum
+                    self._parallel.sum_(total)
         finally:
             batches.close()
         confusion = total.cpu().numpy().astype(np.float32)

@@ -88,7 +88,8 @@ class FusionFCN(Estimator):
 
     def _train_outputs(self, ctx, batch):
         log_prob = ll.log_softmax(self._score(ctx, batch))
-        return {"loss": cross_entropy(log_prob, batch["labels"])}
+        return {"loss": cross_entropy(log_prob, batch["labels"],
+                                      axis_name=ctx.sharded_axes)}
 
     def _test_outputs(self, ctx, batch):
         prob = ll.softmax(self._score(ctx, batch))

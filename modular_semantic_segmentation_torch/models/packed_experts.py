@@ -35,9 +35,12 @@ from modular_semantic_segmentation_torch.models.simple_fcn import \
 def can_pack_stems(ctx, batch, modalities, config):
     """True when the packed stem applies: ``pack_experts`` (default on),
     FCN experts, at least two modalities, not a calibration pass (whose
-    amax keys are the unpacked scopes), one spatial grid, and inputs of at
-    most 4 channels."""
+    amax keys are the unpacked scopes) nor a height-sharded one (whose
+    convs stay float), one spatial grid, and inputs of at most 4
+    channels."""
     if not config.get("pack_experts", True):
+        return False
+    if ctx.spatial_axis is not None:
         return False
     if config.get("expert_model") != "fcn":
         return False

@@ -56,9 +56,13 @@ def calibrate_amax(net, data, num_batches=8, percentile=100.0):
         generator = torch.Generator(device=net.device)
         generator.manual_seed(0)
         with torch.inference_mode():
+            # every rank of a distributed model calibrates on the whole
+            # batch; its variables may be channel shards
             ctx = Ctx(net.variables, compute_dtype=net.compute_dtype,
                       kernel_cache=net._kernel_cache, generator=generator,
-                      calibrate=True, calibrate_percentile=percentile)
+                      calibrate=True, calibrate_percentile=percentile,
+                      tensor_parallel=net._parallel_ctx().get(
+                          "tensor_parallel"))
             net._test_outputs(ctx, net._preprocess(
                 net._batch_to_device(batch)))
         for key, value in ctx.amax.items():

@@ -254,7 +254,8 @@ class SimpleFCN(Estimator):
     def _train_outputs(self, ctx, batch):
         layers = self._fcn(ctx, batch[self.modality])
         log_prob = ll.log_softmax(layers["score"])
-        return {"loss": cross_entropy(log_prob, batch["labels"])}
+        return {"loss": cross_entropy(log_prob, batch["labels"],
+                                      axis_name=ctx.sharded_axes)}
 
     def _test_outputs(self, ctx, batch):
         layers = self._fcn(ctx, batch[self.modality])

@@ -8,7 +8,10 @@ the same function).
       int64 accumulator that the caller owns: one launch, no zeroing,
       slicing or casting pass per batch (``Estimator.score``);
     * :func:`confusion_matrix` is the drop-in counterpart of the JAX
-      function, [K, K] float32 per call.
+      function, [K, K] float32 per call, through the registered operator
+      ``msstorch::confusion_counts`` (``torch.export`` records it; an
+      exported program that loads ``ops/cuda/library.py`` reaches the
+      kernel).
 """
 
 import ctypes
@@ -104,14 +107,34 @@ def confusion_accumulate(predictions, labels, num_classes, total):
     return total
 
 
-def confusion_matrix(predictions, labels, num_classes):
-    """[K, K] float32 confusion matrix, rows = true class.
+def confusion_counts(predictions, labels, num_classes):
+    """[K, K] int64 counts of a batch, rows = true class, through the
+    registered operator ``msstorch::confusion_counts`` (which
+    ``torch.export`` records): CPU tensors take
+    :func:`confusion_counts_plain`; CUDA tensors launch the kernel into a
+    fresh accumulator, or raise."""
+    _device_type(predictions, labels)  # before the fake implementation
+    return torch.ops.msstorch.confusion_counts(predictions, labels,
+                                               int(num_classes))
 
-    CPU tensors take :func:`confusion_matrix_plain`; CUDA tensors launch
-    the kernel into a fresh accumulator, or raise.
-    """
-    if _device_type(predictions, labels) == "cpu":
-        return confusion_matrix_plain(predictions, labels, num_classes)
-    k = int(num_classes)
-    total = torch.zeros((k, k), dtype=torch.int64, device=predictions.device)
-    return confusion_accumulate(predictions, labels, k, total).float()
+
+def confusion_matrix(predictions, labels, num_classes):
+    """[K, K] float32 confusion matrix, rows = true class: the counts of
+    :func:`confusion_counts`."""
+    return confusion_counts(predictions, labels, num_classes).float()
+
+
+@torch.library.custom_op("msstorch::confusion_counts", mutates_args=())
+def _confusion_counts_op(predictions: torch.Tensor, labels: torch.Tensor,
+                         num_classes: int) -> torch.Tensor:
+    """[K, K] int64 counts of a batch (:func:`confusion_accumulate` into
+    zeros)."""
+    total = torch.zeros((num_classes, num_classes), dtype=torch.int64,
+                        device=predictions.device)
+    return confusion_accumulate(predictions, labels, num_classes, total)
+
+
+@_confusion_counts_op.register_fake
+def _(predictions, labels, num_classes):
+    return predictions.new_empty((num_classes, num_classes),
+                                 dtype=torch.int64)

@@ -154,17 +154,39 @@ def dirichlet_label(probs, coeffs, bias):
             tensors (a CUDA tensor is copied back, which waits for the
             card).
 
-    CPU tensors take :func:`dirichlet_label_plain` (a list is stacked for
-    it); CUDA tensors launch the kernel, or raise.
+    Goes through the registered operator ``msstorch::dirichlet_label``
+    (which ``torch.export`` records, so an exported program reaches the
+    kernel too): CPU tensors take :func:`dirichlet_label_plain`; CUDA
+    tensors launch the kernel, or raise.
     """
     experts = _experts(probs)
-    device = experts[0].device
+    if experts[0].device.type not in ("cpu", "cuda"):
+        # a meta tensor would reach the operator's fake implementation
+        raise ValueError(f"unsupported device {experts[0].device}")
+    return torch.ops.msstorch.dirichlet_label(experts, coeffs, bias)
+
+
+@torch.library.custom_op("msstorch::dirichlet_label", mutates_args=())
+def _dirichlet_label_op(probs: list[torch.Tensor], coeffs: torch.Tensor,
+                        bias: torch.Tensor) -> torch.Tensor:
+    """The operator behind :func:`dirichlet_label`: ``probs`` is the list
+    of per-expert [P, K] tensors."""
+    device = probs[0].device
     if device.type == "cpu":
-        stacked = probs if isinstance(probs, torch.Tensor) else torch.stack(
-            experts)
-        return dirichlet_label_plain(stacked, coeffs, bias)
+        return dirichlet_label_plain(torch.stack(probs), coeffs, bias)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
+    return _launch(probs, coeffs, bias)
+
+
+@_dirichlet_label_op.register_fake
+def _(probs, coeffs, bias):
+    return probs[0].new_empty((probs[0].shape[0],), dtype=torch.int32)
+
+
+def _launch(experts, coeffs, bias):
+    """Check the inputs and launch the kernel on the current stream."""
+    device = experts[0].device
     e = len(experts)
     if not 1 <= e <= MAX_EXPERTS:
         raise ValueError(f"the kernel takes 1 to {MAX_EXPERTS} experts, "

@@ -27,11 +27,22 @@ Tensors are NHWC at every function here. A convolution sees the
 cuDNN and the CPU kernels take without a copy. Kernels are stored HWIO
 (the npz contract) and permuted to PyTorch's [out, in, kh, kw] per call.
 The plain large convolutions stay ``torch.nn.functional`` calls, as the
-JAX package leaves them to XLA. Every float path is differentiable, and
+JAX package leaves them to XLA.
+
+Under the parallel layer (``parallel/``) the context's axes change three
+things, as in the JAX package: with ``ctx.spatial_axis`` convs and deconvs
+exchange row halos with the neighbouring height shards (a conv whose reach
+exceeds the local block gathers the whole feature map), and convs stay off
+the int8 path; train-mode batch norm sums its statistics over
+``ctx.sharded_axes``; and with ``ctx.tensor_parallel`` a conv whose kernel
+this rank holds a channel shard of computes those output channels, its
+bias, batch norm and activation on them, and gathers the channels
+(``parallel/tensor_parallel.py``). Every float path is differentiable, and
 autograd gives its gradients: the JAX package's custom VJPs of these
 layers are speed formulations of the same gradients on the TPU.
 """
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -89,24 +100,58 @@ def batch_norm(ctx, x, name):
     moving statistic. ``torch.nn.functional.batch_norm`` would record the
     unbiased variance instead.
     """
+    channels = x.shape[-1]
     with ctx.scope(name):
-        gamma = ctx.get("gamma")
-        beta = ctx.get("beta")
-        mean = ctx.get("moving_mean")
-        var = ctx.get("moving_variance")
+        gamma = _channels(ctx, ctx.get("gamma"), channels)
+        beta = _channels(ctx, ctx.get("beta"), channels)
+        mean = _channels(ctx, ctx.get("moving_mean"), channels)
+        var = _channels(ctx, ctx.get("moving_variance"), channels)
         x32 = x.to(torch.promote_types(x.dtype, torch.float32))
         if ctx.train:
             axes = tuple(range(x.ndim - 1))
             moving_mean, moving_var = mean, var
-            mean = torch.mean(x32, dim=axes)
-            var = torch.mean(torch.square(x32 - mean.detach()), dim=axes)
-            ctx.record_update("moving_mean", BN_MOMENTUM * moving_mean
-                              + (1.0 - BN_MOMENTUM) * mean)
-            ctx.record_update("moving_variance", BN_MOMENTUM * moving_var
-                              + (1.0 - BN_MOMENTUM) * var)
+            if ctx.sharded_axes:
+                # statistics over the GLOBAL (N, H, W): the shards' sums
+                # summed (the JAX package's psum; sync batch norm)
+                from modular_semantic_segmentation_torch.parallel import \
+                    collectives
+                count = float(np.prod([x.shape[i] for i in axes])) * float(
+                    np.prod([a.size for a in ctx.sharded_axes]))
+                mean = collectives.all_reduce(torch.sum(x32, dim=axes),
+                                              ctx.sharded_axes) / count
+                var = collectives.all_reduce(
+                    torch.sum(torch.square(x32 - mean.detach()), dim=axes),
+                    ctx.sharded_axes) / count
+            else:
+                mean = torch.mean(x32, dim=axes)
+                var = torch.mean(torch.square(x32 - mean.detach()),
+                                 dim=axes)
+            _record_channels(ctx, "moving_mean", BN_MOMENTUM * moving_mean
+                             + (1.0 - BN_MOMENTUM) * mean)
+            _record_channels(ctx, "moving_variance", BN_MOMENTUM * moving_var
+                             + (1.0 - BN_MOMENTUM) * var)
     inv = torch.rsqrt(var + BN_EPSILON) * gamma
     out = x32 * inv + (beta - mean * inv)
     return out.to(x.dtype)
+
+
+def _channels(ctx, value, channels):
+    """A per-channel variable for ``channels`` channels: as stored, or,
+    under tensor parallelism, this rank's block of a whole one or the
+    gather of a shard."""
+    if ctx.tensor_parallel is None or value.shape[-1] == channels:
+        return value
+    return ctx.tensor_parallel.fit(value, channels)
+
+
+def _record_channels(ctx, name, value):
+    """``ctx.record_update`` of a per-channel update in the stored
+    variable's channels (gathered when the variable is stored whole and
+    ``value`` holds this rank's block)."""
+    stored = ctx.get(name)
+    if value.shape[-1] != stored.shape[-1]:
+        value = ctx.tensor_parallel.fit(value.detach(), stored.shape[-1])
+    ctx.record_update(name, value)
 
 
 def _epilogue(ctx, out, name, activation, batch_normalization):
@@ -191,10 +236,16 @@ def conv2d(ctx, x, filters, kernel_size, name, strides=1, dilation_rate=1,
     dh, dw = _pair(dilation_rate)
     n, h, w, in_ch = x.shape
     dtype = ctx.compute_dtype
+    tp = ctx.tensor_parallel
     with ctx.scope(name):
         kernel = ctx.get("kernel")
-        _check_shape(kernel, (kh, kw, in_ch, int(filters)),
+        channel_shard = tp is not None and tp.is_sharded(
+            ctx.full_name("kernel"))
+        _check_shape(kernel, (kh, kw, in_ch, int(filters) // tp.axis.size
+                              if channel_shard else int(filters)),
                      ctx.full_name("kernel"))
+        if channel_shard:
+            x = tp.enter(x)
         quant_key = ctx.full_name("input_amax")
         if ctx.calibrate:
             _calibrate(ctx, x, quant_key)
@@ -202,7 +253,8 @@ def conv2d(ctx, x, filters, kernel_size, name, strides=1, dilation_rate=1,
         pw = _same_pads(w, kw, sw, dw)
         if (not ctx.train and not ctx.calibrate
                 and ctx.act_scales is not None
-                and quant_key in ctx.act_scales):
+                and quant_key in ctx.act_scales
+                and ctx.spatial_axis is None):
             kq_t, ascale, dequant = _int8_operands(
                 ctx, kernel, ctx.act_scales[quant_key])
             acc = int8_conv.int8_conv2d(
@@ -211,25 +263,71 @@ def conv2d(ctx, x, filters, kernel_size, name, strides=1, dilation_rate=1,
             # int32 * float32 [out] promotes to float32 in one pass
             out = torch.mul(acc, dequant)
             if use_bias:
-                out.add_(ctx.get("bias"))
+                out.add_(_channels(ctx, ctx.get("bias"), out.shape[-1]))
         else:
-            xd = x.to(dtype)
-            if ph[0] == ph[1] and pw[0] == pw[1]:
-                pad = (ph[0], pw[0])
+            if ctx.spatial_axis is not None and kh > 1:
+                out = _spatial_conv(ctx.spatial_axis, x.to(dtype),
+                                    kernel.to(dtype), (kh, kw), (sh, sw),
+                                    (dh, dw), pw)
             else:
-                # asymmetric (strided) SAME: pad the NHWC tensor
-                # explicitly; PyTorch's padding='same' refuses stride > 1
-                xd = F.pad(xd, (0, 0, pw[0], pw[1], ph[0], ph[1]))
-                pad = (0, 0)
-            out = F.conv2d(xd.permute(0, 3, 1, 2),
-                           kernel.permute(3, 2, 0, 1).to(dtype),
-                           stride=(sh, sw), padding=pad, dilation=(dh, dw))
-            out = out.permute(0, 2, 3, 1)
+                out = _conv(x.to(dtype), kernel.to(dtype), (sh, sw),
+                            (dh, dw), ph, pw)
             if use_bias:
                 # float32 promotion, as jnp's bf16 + f32 in the JAX package
-                out = out + ctx.get("bias")
+                out = out + _channels(ctx, ctx.get("bias"), out.shape[-1])
     # outside the conv's scope: batch_norm enters <name> itself
-    return _epilogue(ctx, out, name, activation, batch_normalization)
+    out = _epilogue(ctx, out, name, activation, batch_normalization)
+    if channel_shard:
+        out = tp.gather(out)
+    return out
+
+
+def _conv(x, kernel, strides, dilation, ph, pw):
+    """NHWC conv with an HWIO kernel and (leading, trailing) pads of the
+    height and the width."""
+    if ph[0] == ph[1] and pw[0] == pw[1]:
+        pad = (ph[0], pw[0])
+    else:
+        # asymmetric (strided) SAME: pad the NHWC tensor explicitly;
+        # PyTorch's padding='same' refuses stride > 1
+        x = F.pad(x, (0, 0, pw[0], pw[1], ph[0], ph[1]))
+        pad = (0, 0)
+    out = F.conv2d(x.permute(0, 3, 1, 2), kernel.permute(3, 2, 0, 1),
+                   stride=strides, padding=pad, dilation=dilation)
+    return out.permute(0, 2, 3, 1)
+
+
+def _spatial_conv(axis, x, kernel, kernel_size, strides, dilation, pw):
+    """SAME conv of a block of rows of the frame split over ``axis``, as
+    the JAX package's height-sharded path: the SAME pads of the global
+    height (stride divides it, so their total is the dilated reach less
+    the stride; TF's split, the extra row on the trailing side) come as
+    row halos from the neighbouring blocks (zeros at the frame's edges),
+    and the height is then VALID. The stride must divide the local
+    height. Where the reach exceeds the local block (AdapNet's
+    dilation-16 blocks at 1/16 resolution) the whole feature map is
+    gathered, convolved, and this block's output rows are kept."""
+    from modular_semantic_segmentation_torch.parallel import collectives
+    kh, _ = kernel_size
+    sh, _ = strides
+    h_local = x.shape[1]
+    if h_local % sh:
+        raise NotImplementedError(
+            "spatial sharding needs stride | local block height")
+    pad_h = max(dilation[0] * (kh - 1) + 1 - sh, 0)
+    halo_top, halo_bottom = pad_h // 2, pad_h - pad_h // 2
+    reach = max(halo_top, halo_bottom)
+    if reach <= h_local:
+        top, bottom = collectives.halo_exchange_rows(x, axis,
+                                                     rows=max(reach, 1))
+        haloed = torch.cat([top[:, top.shape[1] - halo_top:], x,
+                            bottom[:, :halo_bottom]], dim=1)
+        return _conv(haloed, kernel, strides, dilation, (0, 0), pw)
+    whole = collectives.all_gather(x, axis, dim=1)
+    out = _conv(whole, kernel, strides, dilation, (halo_top, halo_bottom),
+                pw)
+    rows = h_local // sh
+    return out[:, axis.index * rows:(axis.index + 1) * rows]
 
 
 def _channel_diagonal(ctx, kernel):
@@ -239,6 +337,8 @@ def _channel_diagonal(ctx, kernel):
     computed for, so a frame served with the same kernel does not wait for
     the device to check again."""
     key = ctx.full_name("kernel")
+    if key in ctx.channel_diagonal:
+        return ctx.channel_diagonal[key]
     cached = ctx.kernel_cache.get(key)
     if cached is not None and cached[0] is kernel:
         return cached[1]
@@ -266,13 +366,32 @@ def deconv2d(ctx, x, filters, kernel_size, name, strides=1, activation=None,
     """
     kh, kw = _pair(kernel_size)
     sh, sw = _pair(strides)
-    n, h, w, in_ch = x.shape
     dtype = ctx.compute_dtype
     if kh < sh or kw < sw:
         raise NotImplementedError("SAME transposed conv needs kernel >= "
                                   "stride")
+    spatial = ctx.spatial_axis is not None
+    if spatial:
+        # one halo row each side covers the kernel's reach when k <=
+        # 2 * stride (the reference's 4/2 and 16/8 deconvs); the
+        # stride-wide overlap of the output is trimmed below. SAME is
+        # translation-covariant, so SAME on the haloed block + trim ==
+        # the global SAME.
+        from modular_semantic_segmentation_torch.parallel import \
+            collectives
+        if kh > 2 * sh:
+            raise NotImplementedError(
+                "spatial sharding needs deconv kernel <= 2*stride")
+        top, bottom = collectives.halo_exchange_rows(x, ctx.spatial_axis,
+                                                     rows=1)
+        x = torch.cat([top, x, bottom], dim=1)
+    n, h, w, in_ch = x.shape
     with ctx.scope(name):
         kernel = ctx.get("kernel")
+        if ctx.tensor_parallel is not None:
+            # the whole kernel: a deconv's channel shards are its input's
+            kernel = ctx.tensor_parallel.whole(ctx.full_name("kernel"),
+                                               kernel)
         _check_shape(kernel, (kh, kw, int(filters), in_ch),
                      ctx.full_name("kernel"))
         if (not trainable and int(filters) == in_ch and kh == kw
@@ -290,8 +409,10 @@ def deconv2d(ctx, x, filters, kernel_size, name, strides=1, activation=None,
             lo_w = same_transpose_crop(kw, sw)
             out = out[:, :, lo_h:lo_h + h * sh, lo_w:lo_w + w * sw]
             out = out.permute(0, 2, 3, 1)
+        if spatial:
+            out = out[:, sh:out.shape[1] - sh]
         if use_bias:
-            out = out + ctx.get("bias")
+            out = out + _channels(ctx, ctx.get("bias"), out.shape[-1])
     return _epilogue(ctx, out, name, activation, batch_normalization)
 
 

@@ -15,7 +15,7 @@ import numpy as np
 # [K, K] float32 per call, or counts added into a [K, K] int64 accumulator;
 # rows = true class; labels < 0 (void) are not counted
 from modular_semantic_segmentation_torch.ops.cuda.confusion import (  # noqa: F401,E501
-    confusion_accumulate, confusion_matrix)
+    confusion_accumulate, confusion_counts, confusion_matrix)
 
 
 def measures_from_confusion_matrix(conf_mat):

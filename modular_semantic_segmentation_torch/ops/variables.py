@@ -12,6 +12,14 @@ In training mode (``Ctx(train=True)``) batch norm normalizes with batch
 statistics and records its moving-statistic updates in ``ctx.updates``,
 which the train step merges into the new variables, as in the JAX
 package: no layer changes a variable in place.
+
+Under the parallel layer (``parallel/``) a context also carries the mesh
+axes its computation is split over: ``spatial_axis`` (the frame's height
+is sharded: convs exchange row halos, batch norm and the loss sum over the
+shards, as the JAX package's ``Ctx(spatial_axis=...)``), ``data_axis``
+(the batch is sharded: batch norm and the loss sum over the shards, which
+the JAX package's data parallelism gets from XLA) and ``tensor_parallel``
+(the variables' channel shards, ``parallel/tensor_parallel.py``).
 """
 
 from contextlib import contextmanager
@@ -19,6 +27,11 @@ from contextlib import contextmanager
 import torch
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+#: ``Ctx(generator=DEFAULT_GENERATOR)``: stochastic layers draw from the
+#: device's default generator (``torch.rand`` without a generator), the
+#: stream an exported program's draws come from (``serving.py``)
+DEFAULT_GENERATOR = "default"
 
 
 def resolve_device(device):
@@ -54,7 +67,8 @@ class Ctx:
             its quantized form.
         generator: ``torch.Generator`` on the device of the variables,
             the random stream that stochastic layers (MC dropout) draw
-            from; None for a purely deterministic computation.
+            from; :data:`DEFAULT_GENERATOR` for the device's default
+            generator; None for a purely deterministic computation.
         act_scales: optional dict full scope name -> float activation
             scale; a conv whose ``<scope>/input_amax`` it holds runs the
             int8 serving path (``models/quantize.py``). None = float
@@ -68,13 +82,29 @@ class Ctx:
         train: training mode: batch norm uses batch statistics and
             records moving-statistic updates in ``self.updates``; convs
             never take the int8 path.
+        channel_diagonal: dict ``<scope>/kernel`` -> bool, whether a
+            frozen deconv kernel is channel-diagonal, decided before the
+            computation: a program traced by ``torch.export`` cannot ask
+            its weights (``serving.export_serving``).
+        spatial_axis: ``parallel.mesh.Axis`` the height is sharded over;
+            convs and deconvs exchange row halos with the neighbouring
+            shards, and neither takes the int8 path.
+        data_axis: ``parallel.mesh.Axis`` the batch is sharded over.
+        tensor_parallel: ``parallel.tensor_parallel.ChannelShards`` of the
+            variables, when each rank holds channel shards.
     """
 
     def __init__(self, variables, compute_dtype=torch.float32,
                  kernel_cache=None, generator=None, act_scales=None,
-                 calibrate=False, calibrate_percentile=100.0, train=False):
+                 calibrate=False, calibrate_percentile=100.0, train=False,
+                 channel_diagonal=None, spatial_axis=None, data_axis=None,
+                 tensor_parallel=None):
         self.variables = variables
         self.train = train
+        self.channel_diagonal = channel_diagonal or {}
+        self.spatial_axis = spatial_axis
+        self.data_axis = data_axis
+        self.tensor_parallel = tensor_parallel
         self.updates = {}
         self.compute_dtype = compute_dtype
         self.kernel_cache = {} if kernel_cache is None else kernel_cache
@@ -114,12 +144,22 @@ class Ctx:
         """The random stream of this computation (counterpart of the JAX
         ``Ctx.next_rng``). One generator advances with every draw, where
         JAX splits its key; the two give different numbers from the same
-        seed either way."""
+        seed either way. None for :data:`DEFAULT_GENERATOR`: a draw
+        without a generator takes the device's default one."""
         if self._generator is None:
             raise ValueError(
                 "This computation needs a random stream (a stochastic "
                 "layer) but Ctx was constructed with generator=None.")
+        if self._generator is DEFAULT_GENERATOR:
+            return None
         return self._generator
+
+    @property
+    def sharded_axes(self):
+        """The mesh axes the pixels of the batch are sharded over (height
+        and batch): batch norm's statistics and the loss sum over them."""
+        return tuple(a for a in (self.spatial_axis, self.data_axis)
+                     if a is not None)
 
     def get(self, name):
         """The variable ``<scope>/name``; raises KeyError if missing."""

@@ -24,6 +24,17 @@ import numpy as np
 import torch
 
 
+def to_numpy(value):
+    """Host numpy copy of a tensor; bfloat16 comes back as float32, which
+    numpy has no type for."""
+    if not isinstance(value, torch.Tensor):
+        return np.asarray(value)
+    value = value.detach()
+    if value.dtype == torch.bfloat16:
+        value = value.float()
+    return value.cpu().numpy()
+
+
 def _pad_batch(batch, batchsize, pad_label=-1):
     """Pad a partial batch to the static batchsize. Returns (batch, valid)."""
     n = next(iter(batch.values())).shape[0]

@@ -75,7 +75,11 @@ def test_port_imports_without_jax_and_its_host_deps():
                  "experiments.train_and_evaluate_progressive",
                  "experiments.ibcc_fusion", "experiments.report",
                  "experiments.rerun", "datasets.not_cityscapes",
-                 "utils.profiling", "ops"):
+                 "utils.profiling", "ops", "serving", "ops.cuda.library",
+                 "parallel", "parallel.mesh", "parallel.collectives",
+                 "parallel.launch", "parallel.data_parallel",
+                 "parallel.spatial", "parallel.tensor_parallel",
+                 "parallel.pipeline", "parallel.expert_parallel"):
         assert f"{package}.{name}" in modules, name
     script = (
         "import sys\n"
@@ -303,3 +307,98 @@ def test_models_refuse_cuda_without_a_card():
         get_model("fcn")(prefix="rgb", modality="rgb",
                          data_description=description, num_units=2,
                          channel_factor=0.125)
+
+
+def rank_imports():
+    """A rank of ``parallel.launch``: one collective and the halo
+    exchange over a mesh, then the modules of JAX and of the JAX package
+    this rank process holds."""
+    import torch
+    from modular_semantic_segmentation_torch.parallel import (
+        collectives, make_mesh)
+    mesh = make_mesh({"sp": 2}, device="cpu")
+    axis = mesh.axis("sp")
+    value = torch.ones(1)
+    collectives.all_reduce_(value, axis)
+    above, below = collectives.exchange_rows(
+        axis, torch.full((1, 1), float(axis.index)),
+        torch.full((1, 1), float(axis.index)))
+    return (float(value), float(above), float(below),
+            sorted(m for m in sys.modules if m.split(".")[0] in (
+                "jax", "jaxlib", "modular_semantic_segmentation_tpu")))
+
+
+def test_parallel_ranks_import_no_jax():
+    """The launcher's rank processes (spawned, importing this module for
+    their function) load no module of JAX or of the JAX package, in a
+    parent where those cannot be imported."""
+    script = (
+        "import sys\n"
+        "for name in ('jax', 'modular_semantic_segmentation_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        f"sys.path.insert(0, {os.path.join(REPO, 'tests')!r})\n"
+        "from modular_semantic_segmentation_torch.parallel import launch\n"
+        "import test_torch_gate\n"
+        "print(launch(test_torch_gate.rank_imports, 2, backend='gloo', "
+        "device='cpu'))\n")
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.strip().splitlines()[-1] == (
+        "[(2.0, 0.0, 1.0, []), (2.0, 0.0, 0.0, [])]")
+
+
+def test_exported_serving_loads_without_model_modules(tmp_path):
+    """An artifact loads and runs in a process where no module of
+    ``models/`` (nor JAX) can be imported; without the kernels' operator
+    module, ``torch.export.load`` of it raises."""
+    import numpy as np
+    from modular_semantic_segmentation_torch.models import get_model
+    from modular_semantic_segmentation_torch.serving import export_serving
+    description = ({"rgb": np.float32},
+                   {"rgb": (None, None, 3), "labels": (None, None)}, 3)
+    rng = np.random.RandomState(0)
+    params = {m: rng.rand(3, 3) + 1 for m in ("rgb", "depth")}
+    params["class_counts"] = rng.rand(3) + 1
+    net = get_model("dirichlet_fusion")(
+        data_description=({"rgb": np.float32, "depth": np.float32},
+                          {"rgb": (None, None, 3), "depth": (None, None, 1),
+                           "labels": (None, None)}, 3),
+        num_units=2, channel_factor=0.125, expert_model="fcn",
+        prefixes={"rgb": "rgb", "depth": "depth"}, use_pallas=True,
+        dirichlet_params=params, device="cpu")
+    batch = {"rgb": rng.rand(1, 32, 32, 3).astype(np.float32),
+             "depth": rng.rand(1, 32, 32, 1).astype(np.float32)}
+    art = export_serving(net, str(tmp_path / "artifact"), batch)
+    np.savez(str(tmp_path / "batch.npz"), **batch)
+    script = (
+        "import sys\n"
+        "for name in ('jax', 'modular_semantic_segmentation_tpu',\n"
+        "             'modular_semantic_segmentation_torch.models'):\n"
+        "    sys.modules[name] = None\n"
+        "import numpy as np, torch\n"
+        "try:\n"
+        f"    torch.export.load({os.path.join(art, 'program.pt2')!r})\n"
+        "except Exception as error:\n"
+        "    print('refused', type(error).__name__)\n"
+        "from modular_semantic_segmentation_torch.serving import \\\n"
+        "    ExportedServing\n"
+        f"batch = dict(np.load({str(tmp_path / 'batch.npz')!r}))\n"
+        f"print(ExportedServing({art!r}).predict(batch).tolist())\n")
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    lines = out.stdout.strip().splitlines()
+    assert lines[0].startswith("refused"), out.stdout
+    assert lines[-1] == str(net.predict(batch).tolist())
+
+
+def test_nccl_with_more_ranks_than_cards_raises():
+    """NCCL takes one card per rank: asking for more ranks than there are
+    cards raises before any process starts (gloo takes ranks that share a
+    card, or the CPU)."""
+    import torch
+    from modular_semantic_segmentation_torch.parallel import launch
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    with pytest.raises(ValueError, match="nccl needs one card per rank"):
+        launch(rank_imports, cards + 1, backend="nccl", device="cuda")
