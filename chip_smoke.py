@@ -183,7 +183,22 @@ H100) and the CUDA toolkit. Phases, each printing its own lines:
     prob); NCCL with one rank (the SGD(1.0) step); in one process on
     [cuda:0, cuda:0], ``fcn_inference_pipeline`` and ``dispatch_experts``
     equal to ``predict``. Printed: each run's backend and the collectives
-    staged through host memory.
+    staged through host memory;
+21. PascalVOC: every JPEG fixture of ``tests/data/jpeg`` decoded by
+    ``image_io.imread`` (flags 1 and 0) and held to the sha256 of cv2's
+    pixels in its manifest, with no tolerance; a VOC tree of 64 frames
+    (48 train, 16 val; copies of the four VOC-sized fixtures, palette
+    labels with VOC's colour map, class blobs, a void border and one
+    colour outside the classes) in a temporary directory read by
+    ``get_dataset('pascalvoc')`` (a measure split of 3); decode ms per
+    frame on one thread and decode + assembly frames/s of training-format
+    batches of 4 with one worker and one per core (host clock); the rgb
+    SimpleFCN at full width (num_units 64, 21 classes, adam 1e-4, batch 4
+    of the driver's 240x240 crops) trained 10 steps, validated on the
+    measure set every 5 steps through kernel A; the 16 val frames scored
+    at their native sizes, batch 1 (500x375 and 375x500, cut to 368x496
+    and 496x368), counts held against kernel A's plain version. Printed:
+    ms per step, peak memory, ms/frame scored, kernel A's launches.
 
 The launch counts are set to 0 just before phase 4 and read just after
 phase 7 (confusion and Dirichlet kernels), set to 0 just before and read
@@ -193,8 +208,9 @@ path of phase 11 (confusion and Dirichlet kernels, ``_int_mm``), phase
 Dirichlet kernels) and training path (confusion kernel), phase 16
 (confusion and Dirichlet kernels), phase 17 (confusion kernel),
 phase 18 (confusion kernel), the artifacts' loader of phase 19 (its own
-process; confusion and Dirichlet kernels) and each rank of phase 20
-(confusion kernel); the kernels' line counts phases 4-7, 19 and 20. The
+process; confusion and Dirichlet kernels), each rank of phase 20
+(confusion kernel) and phase 21 (confusion kernel); the kernels' line
+counts phases 4-7, 19, 20 and 21. The
 third-to-last line is the int8 product's JSON record (a library call,
 not a kernel of the port), the second-to-last the kernels' and the last
 ``{"ok": true, "device": {...}}``. Any fault exits non-zero with no
@@ -323,8 +339,9 @@ def phase_build():
           f"{time.perf_counter() - start:.1f} s")
     start = time.perf_counter()
     native_backend.build()
-    print(f"build: the host library native/host_ops.cc with the host's C++ "
-          f"compiler in {time.perf_counter() - start:.1f} s")
+    print(f"build: the host library native/host_ops.cc and "
+          f"native/jpeg_decode.cc with the host's C++ compiler in "
+          f"{time.perf_counter() - start:.1f} s")
     for name in build.KERNEL_SOURCES:
         for function, usage in ptxas_usage(build.build_log(name)):
             print(f"ptxas {function}: {usage}")
@@ -3159,6 +3176,272 @@ def parallel_layer(experts, bayes, cms, frames, card):
     return sum(r["launches"] for r in ranks)
 
 
+# phase 21, PascalVOC: the port's JPEG decoder held to cv2's pixels through
+# the fixtures' manifest, then a VOC tree of copies of the VOC-sized
+# fixtures, read by the port's driver, trained on at full width and scored
+# at VOC's native frame sizes
+JPEG_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "tests", "data", "jpeg")
+VOC_TRAIN, VOC_VAL = 48, 16
+VOC_CLASSES = 21
+VOC_STEPS = 10
+VOC_BATCH = 4
+VOC_NET = {"num_units": NUM_UNITS, "trainer": "adam", "learning_rate": 1e-4,
+           "batchsize": VOC_BATCH}
+VOC_DECODE_REPEATS = 10
+VOC_PREDICT_REPEATS = 5
+# frames of one size share a batch; the measure split is scored in
+# batches of VOC_BATCH during fit, so its frames all take this fixture
+VOC_MEASURE_FIXTURE = "voc_500x375_q90.jpg"
+VOC_FIXTURES = ("voc_500x375_q90.jpg", "voc_375x500_q75.jpg",
+                "voc_500x333_q95.jpg", "voc_500x375_progressive.jpg")
+# the val frames, at the two sizes the phase scores
+VOC_VAL_FIXTURES = ("voc_500x375_q90.jpg", "voc_375x500_q75.jpg",
+                    "voc_500x375_progressive.jpg", "voc_375x500_q75.jpg")
+
+
+def voc_colormap():
+    """VOC's 256-entry RGB palette (the development kit's bit-interleaved
+    colour map): index 1-20 the classes, 255 the void border."""
+    cmap = np.zeros((256, 3), np.uint8)
+    for i in range(256):
+        r = g = b = 0
+        c = i
+        for j in range(8):
+            r |= ((c >> 0) & 1) << (7 - j)
+            g |= ((c >> 1) & 1) << (7 - j)
+            b |= ((c >> 2) & 1) << (7 - j)
+            c >>= 3
+        cmap[i] = (r, g, b)
+    return cmap
+
+
+def write_palette_png(path, index, palette):
+    """An 8-bit palette PNG, as VOC's SegmentationClass files are."""
+    import struct
+    import zlib
+    height, width = index.shape
+    raw = np.concatenate([np.zeros((height, 1), np.uint8), index],
+                         1).tobytes()
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, 8,
+                                             3, 0, 0, 0))
+                + chunk(b"PLTE", palette.tobytes())
+                + chunk(b"IDAT", zlib.compress(raw, 1))
+                + chunk(b"IEND", b""))
+
+
+def voc_label(rng, height, width):
+    """Class blobs on background, each with a 3-pixel void (255) border,
+    and a patch of index 21, a colour outside the 21 classes."""
+    index = np.zeros((height, width), np.uint8)
+    y, x = np.ogrid[0:height, 0:width]
+    for _ in range(4):
+        cy, cx = rng.randint(0, height), rng.randint(0, width)
+        r = rng.randint(height // 10, height // 4)
+        dist = np.hypot(y - cy, x - cx)
+        index[(dist < r + 3) & (index == 0)] = 255
+        index[dist < r] = rng.randint(1, VOC_CLASSES)
+    py, px = rng.randint(0, height - 20), rng.randint(0, width - 20)
+    index[py:py + 16, px:px + 16] = VOC_CLASSES
+    return index
+
+
+def write_voc_tree(base):
+    """VOC_TRAIN + VOC_VAL frames under VOC's names: copies of the
+    VOC-sized fixtures, palette labels of their sizes. Returns the val
+    names by frame shape."""
+    import shutil
+    from modular_semantic_segmentation_torch.datasets import native_backend
+    from modular_semantic_segmentation_torch.datasets.data_baseclass import \
+        train_test_split
+    train = [f"2007_{i:06d}" for i in range(VOC_TRAIN)]
+    val = [f"2008_{i:06d}" for i in range(VOC_VAL)]
+    _, measure = train_test_split(train, test_size=0.05, random_state=4)
+    sources = {}
+    for i, name in enumerate(train):
+        sources[name] = (VOC_MEASURE_FIXTURE if name in measure
+                         else VOC_FIXTURES[i % len(VOC_FIXTURES)])
+    for i, name in enumerate(val):
+        sources[name] = VOC_VAL_FIXTURES[i % len(VOC_VAL_FIXTURES)]
+    for sub in ("ImageSets/Segmentation", "JPEGImages", "SegmentationClass"):
+        os.makedirs(os.path.join(base, sub))
+    for fileset, names in (("train", train), ("val", val)):
+        with open(os.path.join(base, "ImageSets/Segmentation",
+                               f"{fileset}.txt"), "w") as f:
+            f.write("\n".join(names) + "\n")
+    rng = np.random.RandomState(21)
+    palette = voc_colormap()
+    by_shape = {}
+    for name, fixture in sources.items():
+        src = os.path.join(JPEG_FIXTURES, fixture)
+        shutil.copyfile(src, os.path.join(base, "JPEGImages",
+                                          f"{name}.jpg"))
+        with open(src, "rb") as f:
+            height, width = native_backend.jpeg_header(f.read())[:2]
+        write_palette_png(os.path.join(base, "SegmentationClass",
+                                       f"{name}.png"),
+                          voc_label(rng, height, width), palette)
+        if name in val:
+            by_shape.setdefault((height, width), []).append(name)
+    return measure, by_shape
+
+
+def decode_fixtures(card):
+    """Every fixture decoded with flags 1 and 0 and held to the manifest's
+    sha256 of cv2's pixels; then the VOC-sized ones timed on one thread
+    (host clock). Returns the ms per VOC-sized frame."""
+    import hashlib
+    from modular_semantic_segmentation_torch.datasets import image_io
+    with open(os.path.join(JPEG_FIXTURES, "manifest.json")) as f:
+        manifest = json.load(f)
+    for name, entry in sorted(manifest["files"].items()):
+        path = os.path.join(JPEG_FIXTURES, name)
+        color = image_io.imread(path, image_io.IMREAD_COLOR)
+        gray = image_io.imread(path, image_io.IMREAD_GRAYSCALE)
+        check(list(color.shape) == entry["shape"],
+              f"{name}: decoded shape {color.shape}, cv2's {entry['shape']}")
+        for what, img in (("color", color), ("gray", gray)):
+            digest = hashlib.sha256(img.tobytes()).hexdigest()
+            check(digest == entry[f"sha256_{what}"], f"{name}: the "
+                  f"decoder's {what} pixels differ from cv2's")
+    ms = {}
+    for name in VOC_FIXTURES:
+        path = os.path.join(JPEG_FIXTURES, name)
+        image_io.imread(path)
+        start = time.perf_counter()
+        for _ in range(VOC_DECODE_REPEATS):
+            image_io.imread(path)
+        ms[name] = (time.perf_counter() - start) * 1e3 / VOC_DECODE_REPEATS
+    print(f"PascalVOC decoder: {len(manifest['files'])} JPEG fixtures equal "
+          f"to {manifest['decoder']}'s pixels (sha256, flags 1 and 0); "
+          f"decode on one thread, ms per frame: "
+          + ", ".join(f"{n} {v:.3f}" for n, v in ms.items())
+          + f" (host clock, mean of {VOC_DECODE_REPEATS}) on {card}")
+    return ms
+
+
+def pascalvoc(card):
+    """Phase 21: the PascalVOC driver and the JPEG decoder (see VOC_*
+    above). Returns kernel A's launches on the phase's fit and scores."""
+    import tempfile
+    from modular_semantic_segmentation_torch.datasets import get_dataset
+    from modular_semantic_segmentation_torch.datasets.data_baseclass import \
+        DataSource
+    from modular_semantic_segmentation_torch.models import get_model
+    from modular_semantic_segmentation_torch.ops.cuda import confusion
+    decode_ms = decode_fixtures(card)
+    with tempfile.TemporaryDirectory() as base:
+        start = time.perf_counter()
+        measure_names, val_by_shape = write_voc_tree(base)
+        written = time.perf_counter() - start
+        data = get_dataset("pascalvoc")(base_path=base)
+        # 45 frames left after the measure split: 15 of them validation
+        check(len(data.measureset) == 3 and len(data.trainset) == 30
+              and len(data.validation_set) == 15
+              and len(data.testset) == VOC_VAL,
+              f"PascalVOC splits of {len(data.trainset)}, "
+              f"{len(data.validation_set)}, {len(data.measureset)} and "
+              f"{len(data.testset)} frames")
+        check(sorted(i["image_name"] for i in data.measureset)
+              == sorted(measure_names), "the measure split is not the one "
+              "train_test_split(random_state=4) gives")
+        cores = os.cpu_count()
+        rates = {w: assembly_rate(data, w) for w in (1, cores)}
+        print(f"PascalVOC tree: {VOC_TRAIN} train and {VOC_VAL} val frames "
+              f"written in {written:.2f} s, measure split "
+              f"{len(data.measureset)}; decode + assembly of training-format "
+              f"batches of {INPUT_BATCH} (240x240 crops): {rates[1]:.1f} "
+              f"frames/s with 1 worker, {rates[cores]:.1f} frames/s with "
+              f"{cores} (host clock) on {card}")
+
+        description = data.get_data_description()
+        confusion.KERNEL.launches = 0
+        net = get_model("simple_fcn")(
+            prefix="rgb", modality="rgb", data_description=description,
+            **VOC_NET)
+        measure = data.get_measureset()
+        times, losses, peak, validations = train_run(
+            net, data.get_trainset(), VOC_STEPS, measure)
+        check(np.isfinite(losses).all(),
+              f"PascalVOC training: non-finite loss {losses}")
+        check(len(validations) >= 2, f"PascalVOC training validated "
+              f"{len(validations)} times in {VOC_STEPS} steps")
+        expected = len(validations) * -(-len(measure) // VOC_BATCH)
+        steady = times[TRAIN_WARMUP:]
+        print(f"PascalVOC training: {statistics.median(steady):.3f} ms per "
+              f"train step (median of {len(steady)} after {TRAIN_WARMUP} "
+              f"warm-up steps; min {min(steady):.3f}, max "
+              f"{max(steady):.3f}; host clock, synchronised), rgb SimpleFCN "
+              f"num_units {VOC_NET['num_units']}, {VOC_CLASSES} classes, "
+              f"batch "
+              f"{VOC_BATCH} of 240x240 crops, adam 1e-4; peak memory "
+              f"{peak / 2**30:.3f} GiB; losses "
+              + " ".join(f"{x:.4f}" for x in losses) + f" on {card}")
+
+        scorer = get_model("simple_fcn")(
+            prefix="rgb", modality="rgb", data_description=description,
+            **dict(VOC_NET, batchsize=1))
+        scorer.variables = net.variables
+        scored = {}
+        for shape, names in sorted(val_by_shape.items()):
+            source = DataSource(data, [{"image_name": n} for n in names])
+            score_checked(scorer.score,
+                          DataSource(data, [{"image_name": names[0]}]),
+                          "warm-up score")
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            measures, counts = score_checked(scorer.score, source,
+                                             f"PascalVOC score {shape}")
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - start
+            labelled = sum(int(((b["labels"] >= 0)
+                                & (b["labels"] < VOC_CLASSES)).sum())
+                           for b in source)
+            check(counts.sum() == labelled, f"PascalVOC score {shape}: "
+                  f"{counts.sum()} pixels counted, {labelled} labelled")
+            check(np.isfinite(measures["total_accuracy"]),
+                  "PascalVOC score: non-finite accuracy")
+            expected += 1 + len(names)
+            # where the time goes: the host's blobs (decode, colour map,
+            # crop) apart from the forward of a frame already decoded
+            start = time.perf_counter()
+            blobs = list(source)
+            host_ms = (time.perf_counter() - start) * 1e3 / len(names)
+            frame = {"rgb": blobs[0]["rgb"][None]}
+            scorer.predict(frame)
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            for _ in range(VOC_PREDICT_REPEATS):
+                scorer.predict(frame)
+            torch.cuda.synchronize()
+            predict_ms = ((time.perf_counter() - start) * 1e3
+                          / VOC_PREDICT_REPEATS)
+            scored[shape] = (seconds * 1e3 / len(names), len(names),
+                             host_ms, predict_ms)
+        launches = confusion.KERNEL.launches
+        check(launches == expected, f"kernel A launched {launches} times on "
+              f"the PascalVOC path, expected {expected} (validation, warm-up "
+              "and score batches)")
+    print("PascalVOC score at native sizes, batch 1: " + "; ".join(
+        f"{w}x{h} (cut to {w // 16 * 16}x{h // 16 * 16}) {ms:.3f} ms/frame "
+        f"over {n} frames (the host's blobs alone {host:.3f}, predict of a "
+        f"decoded frame alone {fwd:.3f})"
+        for (h, w), (ms, n, host, fwd) in scored.items())
+        + f" (host clock, synchronised, decode included; after a warm-up "
+        f"frame) on {card}")
+    print(f"PascalVOC path: confusion launches {launches} (validation and "
+          f"score batches); decode {min(decode_ms.values()):.3f}-"
+          f"{max(decode_ms.values()):.3f} ms per VOC frame")
+    return launches
+
+
 def main():
     times = {}
 
@@ -3357,9 +3640,15 @@ def main():
           f"ranks' sum)")
     check(parallel_launches > 0, "the parallel ranks launched no confusion "
           "kernel")
+    # ---- the PascalVOC path: kernel A's count is set to 0 and read inside
+    # pascalvoc
+    voc_launches = timed("PascalVOC", pascalvoc, smi_line)
+    # ---- end of the PascalVOC path
+    check(voc_launches > 0, "the PascalVOC path launched no confusion "
+          "kernel")
     launches["dirichlet"] += artifact_launches["dirichlet"]
     launches["confusion"] += (artifact_launches["confusion"]
-                              + parallel_launches)
+                              + parallel_launches + voc_launches)
     for record in records:
         record["launches"] = launches[record["name"]]
         check(record["launches"] > 0,

@@ -1,9 +1,8 @@
 """Dataset registry (the port's copy of the JAX package's
 ``datasets/__init__.py``), with lazy class exports.
 
-Every name of the JAX package's registry resolves to the port's driver,
-except ``pascalvoc`` (its JPEG frames need a decoder without cv2), which
-raises ``NotImplementedError`` (ROADMAP.md, section 1, item A3); an
+Every name of the JAX package's registry resolves to the port's driver
+(``pascalvoc`` reads its JPEG frames with the port's own decoder); an
 unknown name raises the JAX package's ``UserWarning``.
 """
 
@@ -22,20 +21,12 @@ _REGISTRY = {
     "mixeddata": ("mixed_data", "MixedData"),
     "add_random_objects": ("not_cityscapes", "AddRandomObjects"),
     "unittest": ("unittest_data", "UnittestData"),
-}
-
-#: the JAX package's other datasets, by registry name and class name
-_NOT_PORTED = {
-    "pascalvoc": "PascalVOC",
+    "pascalvoc": ("pascalvoc", "PascalVOC"),
 }
 
 
 def get_dataset(name):
     """Look up a dataset class by registry name."""
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"dataset '{name}' is not ported yet (ROADMAP.md, section 1, "
-            "item A3)")
     try:
         module_name, cls_name = _REGISTRY[name]
     except KeyError:
@@ -45,9 +36,7 @@ def get_dataset(name):
     return getattr(module, cls_name)
 
 
-_CLASS_NAMES = {
-    **{cls: name for name, cls in _NOT_PORTED.items()},
-    **{cls: name for name, (_, cls) in _REGISTRY.items()}}
+_CLASS_NAMES = {cls: name for name, (_, cls) in _REGISTRY.items()}
 
 
 def __getattr__(name):

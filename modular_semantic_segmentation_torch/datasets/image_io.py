@@ -1,12 +1,18 @@
-"""PNG reading and writing without cv2: the subset of ``cv2.imread`` and
-``cv2.imwrite`` that the dataset drivers use.
+"""PNG and JPEG reading, and PNG writing, without cv2: the subset of
+``cv2.imread`` and ``cv2.imwrite`` that the dataset drivers use.
 
 The JAX package's drivers read every image with ``cv2.imread``, which the
-GPU machine does not have. This module parses the PNG container with the
-standard library (``struct``, ``zlib``), reconstructs the filtered rows
-in the native host library (``native_backend.png_unfilter``; the plain
-version :func:`unfilter_plain` beside it is what the tests hold it
-against), and converts the samples as cv2 (OpenCV 5 on libpng) does:
+GPU machine does not have. :func:`imread` chooses the format from the
+file's signature, as cv2 does, not from its name: ``\\x89PNG`` or
+``FF D8 FF`` (the JAX package's own tests write PNG bytes under ``.jpg``
+names, and cv2 reads them). A file in any other format raises
+``ValueError``.
+
+PNG: this module parses the container with the standard library
+(``struct``, ``zlib``), reconstructs the filtered rows in the native host
+library (``native_backend.png_unfilter``; the plain version
+:func:`unfilter_plain` beside it is what the tests hold it against), and
+converts the samples as cv2 (OpenCV 5 on libpng) does:
 
 * ``IMREAD_COLOR`` (the default): three channels in BGR order; 16-bit
   samples reduced to 8 by their high byte; gray replicated; alpha dropped;
@@ -19,18 +25,41 @@ against), and converts the samples as cv2 (OpenCV 5 on libpng) does:
 * ``IMREAD_ANYDEPTH``: 16-bit samples stay 16-bit (big-endian in the
   file);
 * ``IMREAD_ANYCOLOR``: three channels where the file has more than one,
-  else one;
-* a missing file gives None, as ``cv2.imread`` does, for the drivers'
-  ``is None`` checks.
+  else one.
 
-Supported files: 8- and 16-bit gray, gray with alpha, RGB and RGBA, and
-8-bit palette, not interlaced. Adam7 interlacing, bit depths below 8 and
-flags outside 0-6 (``IMREAD_UNCHANGED`` among them) raise ``ValueError``;
-ancillary chunks (gamma, transparency, text) are ignored, as cv2 ignores
-them for these flags.
+Supported PNG files: 8- and 16-bit gray, gray with alpha, RGB and RGBA,
+and 8-bit palette, not interlaced. Adam7 interlacing and bit depths below
+8 raise ``ValueError``; ancillary chunks (gamma, transparency, text, and
+``eXIf``: a PNG's EXIF orientation is not applied) are ignored.
 
-:func:`imwrite` writes filter type 0 with zlib; its bytes differ from
-cv2's, its pixels read back equal in cv2 and here.
+JPEG: the native decoder (``native/jpeg_decode.cc``, through
+``native_backend.jpeg_decode``) computes what libjpeg-turbo 3.1 computes
+under cv2 (accurate integer IDCT, fancy upsampling, libjpeg's fixed-point
+colour tables), bit for bit, for baseline, extended and progressive
+Huffman files with one or three components, any integral sampling and
+restart intervals. The flags map as cv2 maps them for an 8-bit JPEG:
+
+* a colour flag (``IMREAD_COLOR``) gives BGR, a gray file replicated;
+* ``IMREAD_GRAYSCALE`` gives libjpeg's gray (the Y component of a YCbCr
+  file; jdcolor.c's rgb-to-gray of an RGB file);
+* ``IMREAD_ANYCOLOR`` gives one channel for a gray file, three for a
+  colour one; ``IMREAD_ANYDEPTH`` changes nothing;
+* the EXIF orientation (tag 0x0112 of the first ``Exif`` APP1 segment) is
+  applied as cv2's ``ApplyExifOrientation`` applies it: 2 flips left to
+  right, 3 rotates by 180 degrees, 4 flips top to bottom, 5 transposes, 6
+  transposes and flips left to right, 7 transposes and rotates by 180, 8
+  transposes and flips top to bottom.
+
+Arithmetic-coded, lossless, 12-bit and 4-component (CMYK / YCCK) JPEG
+files raise ``ValueError``, as do truncated or corrupt ones, where cv2
+warns ("Premature end of JPEG file") and fills the missing blocks.
+
+For either format, flags outside 0-6 (``IMREAD_UNCHANGED`` among them)
+raise ``ValueError``, and a missing file gives None, as ``cv2.imread``
+does, for the drivers' ``is None`` checks.
+
+:func:`imwrite` writes PNG with filter type 0 with zlib; its bytes differ
+from cv2's, its pixels read back equal in cv2 and here.
 """
 
 import struct
@@ -51,6 +80,7 @@ IMREAD_ANYCOLOR = 4
 _FLAGS = frozenset(range(7))
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+JPEG_SIGNATURE = b"\xff\xd8\xff"
 # colour type -> samples per pixel
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 # libpng's rgb_to_gray coefficients for (0.299, 0.587) over 2**15
@@ -162,9 +192,39 @@ def _to_gray(rgb):
     return (total >> 15).astype(np.uint8)
 
 
+def apply_exif_orientation(img, orientation):
+    """``img`` ([H, W] or [H, W, C]) turned as cv2's ``ExifTransform``
+    turns it for an EXIF orientation of 1-8; any other value leaves it."""
+    if orientation in (5, 6, 7, 8):
+        img = img.swapaxes(0, 1)
+        orientation = {5: 1, 6: 2, 7: 3, 8: 4}[orientation]
+    if orientation == 2:
+        img = img[:, ::-1]
+    elif orientation == 3:
+        img = img[::-1, ::-1]
+    elif orientation == 4:
+        img = img[::-1]
+    return np.ascontiguousarray(img)
+
+
+def _wants_color(flags, file_channels):
+    return bool(flags & IMREAD_COLOR) or (
+        bool(flags & IMREAD_ANYCOLOR) and file_channels > 1)
+
+
+def decode_jpeg(data, flags=IMREAD_COLOR):
+    """``cv2.imdecode`` of a JPEG file's bytes for flags 0-6 (see the
+    module docstring)."""
+    _, _, components, _ = native_backend.jpeg_header(data)
+    gray = not _wants_color(flags, components)
+    pixels, orientation = native_backend.jpeg_decode(data, gray=gray)
+    return apply_exif_orientation(pixels, orientation)
+
+
 def imread(path, flags=IMREAD_COLOR):
-    """``cv2.imread(path, flags)`` for PNG files (see the module
-    docstring); None when the file cannot be opened."""
+    """``cv2.imread(path, flags)`` for PNG and JPEG files, told apart by
+    their signature (see the module docstring); None when the file cannot
+    be opened."""
     if flags not in _FLAGS:
         raise ValueError(f"imread flags {flags} are not supported (only "
                          f"{sorted(_FLAGS)}; IMREAD_UNCHANGED is not)")
@@ -173,13 +233,16 @@ def imread(path, flags=IMREAD_COLOR):
             data = f.read()
     except OSError:
         return None
+    if data.startswith(JPEG_SIGNATURE):
+        return decode_jpeg(data, flags)
+    if not data.startswith(PNG_SIGNATURE):
+        raise ValueError(f"{path}: not a PNG or JPEG file (signature "
+                         "mismatch)")
     samples, color_type = decode_png(data)
     # cv2's channel count for the file: 4 with alpha (gray + alpha too),
     # 3 for RGB and palette, 1 for gray
     file_channels = {0: 1, 2: 3, 3: 3, 4: 4, 6: 4}[color_type]
-    color = bool(flags & IMREAD_COLOR) or (
-        bool(flags & IMREAD_ANYCOLOR) and file_channels > 1)
-    if color:
+    if _wants_color(flags, file_channels):
         if samples.shape[-1] <= 2:  # gray (+ alpha): replicate the gray
             out = np.repeat(samples[..., :1], 3, axis=-1)
         else:  # RGB(A) -> BGR, alpha dropped

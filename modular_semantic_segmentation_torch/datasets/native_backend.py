@@ -1,15 +1,16 @@
-"""ctypes bridge to the port's native host library (``native/host_ops.cc``).
+"""ctypes bridge to the port's native host library (``native/host_ops.cc``
+and ``native/jpeg_decode.cc``).
 
 The counterpart of the JAX package's ``datasets/native_backend.py``: image
 resize, LUT mapping and the uint8 -> float32 batch pack in C++, plus the
-PNG row unfilter of ``datasets/image_io.py``. The library is compiled
-with the host's C++ compiler on first use,
+PNG row unfilter and the JPEG decoder of ``datasets/image_io.py``. The
+library is compiled with the host's C++ compiler on first use,
 
     g++ -O3 -ffp-contract=off -shared -fPIC -std=c++17
-        -o _build/host_ops-<hash>.so native/host_ops.cc
+        -o _build/host_ops-<hash>.so native/host_ops.cc native/jpeg_decode.cc
 
 into ``modular_semantic_segmentation_torch/_build/`` (not committed), under
-a name that carries a hash of the source and the flags, so an edited
+a name that carries a hash of the sources and the flags, so an edited
 source is rebuilt. A failed build raises.
 
 Unlike the JAX package's bridge, no entry point returns None for the
@@ -29,6 +30,7 @@ import numpy as np
 
 _PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PACKAGE_DIR, "native", "host_ops.cc")
+JPEG_SOURCE = os.path.join(_PACKAGE_DIR, "native", "jpeg_decode.cc")
 BUILD_DIR = os.path.join(_PACKAGE_DIR, "_build")
 # no -fopenmp: the GPU machine's g++ has no OpenMP runtime (libgomp); the
 # loader's threads run the calls side by side instead
@@ -60,13 +62,22 @@ _SIGNATURES = {
     "png_unfilter": [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_void_p],
+    "jpeg_header": [
+        ctypes.c_char_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_char_p,
+        ctypes.c_int],
+    "jpeg_decode": [
+        ctypes.c_char_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_char_p, ctypes.c_int],
 }
+_RETURNS_STATUS = ("png_unfilter", "jpeg_header", "jpeg_decode")
 
 
 def library_path():
-    """Path of the built library for the current source and flags."""
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(CXX_FLAGS).encode())
+    """Path of the built library for the current sources and flags."""
+    digest = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    for source in (SOURCE, JPEG_SOURCE):
+        with open(source, "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"host_ops-{digest.hexdigest()[:16]}.so")
 
 
@@ -79,14 +90,15 @@ def build(timeout=300):
     cxx = os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         raise RuntimeError("no C++ compiler (g++ or c++ on PATH, or $CXX) "
-                           "to build native/host_ops.cc")
+                           "to build the native host library")
     os.makedirs(BUILD_DIR, exist_ok=True)
     partial = f"{target}.{os.getpid()}.{threading.get_ident()}.part"
     try:
-        out = subprocess.run([cxx, *CXX_FLAGS, "-o", partial, SOURCE],
+        out = subprocess.run([cxx, *CXX_FLAGS, "-o", partial, SOURCE,
+                              JPEG_SOURCE],
                              capture_output=True, text=True, timeout=timeout)
         if out.returncode != 0:
-            raise RuntimeError(f"building native/host_ops.cc failed (exit "
+            raise RuntimeError(f"building the native host library failed (exit "
                                f"{out.returncode}):\n{out.stdout}{out.stderr}")
         os.replace(partial, target)
     finally:
@@ -104,7 +116,7 @@ def _lib():
                 for name, argtypes in _SIGNATURES.items():
                     fn = getattr(lib, name)
                     fn.argtypes = argtypes
-                    fn.restype = ctypes.c_int if name == "png_unfilter" \
+                    fn.restype = ctypes.c_int if name in _RETURNS_STATUS \
                         else None
                 _LIB = lib
     return _LIB
@@ -195,3 +207,44 @@ def png_unfilter(raw, height, rowbytes, bpp):
         raise ValueError(f"PNG row {status - 1} has filter type "
                          f"{src[(status - 1) * (rowbytes + 1)]}, not 0-4")
     return dst
+
+
+#: the JPEG decoder's status codes (native/jpeg_decode.cc)
+JPEG_ERRORS = {1: "corrupt or truncated JPEG", 2: "unsupported JPEG",
+               3: "out of memory decoding JPEG"}
+
+
+def _jpeg_status(status, err):
+    if status:
+        raise ValueError(f"{JPEG_ERRORS.get(status, 'JPEG error')}: "
+                         f"{err.value.decode(errors='replace')}")
+
+
+def jpeg_header(data):
+    """(height, width, components, EXIF orientation) of a JPEG file's bytes,
+    from its markers up to the first scan; the orientation is 0 where the
+    file has no EXIF orientation tag. Raises ValueError for what the
+    decoder does not read."""
+    data = bytes(data)
+    info = np.zeros(4, np.int32)
+    err = ctypes.create_string_buffer(256)
+    _jpeg_status(_lib().jpeg_header(data, len(data), info.ctypes.data, err,
+                                    len(err)), err)
+    return tuple(int(v) for v in info)
+
+
+def jpeg_decode(data, gray=False):
+    """Decode a JPEG file's bytes as ``cv2.imread`` (libjpeg-turbo) does:
+    a uint8 ``[H, W, 3]`` BGR array, or ``[H, W]`` libjpeg gray when
+    ``gray``, in the file's stored orientation; returns ``(pixels,
+    orientation)`` with the EXIF orientation (1-8, 0 where there is none)
+    for the caller to apply. Raises ValueError with the decoder's reason
+    for corrupt, truncated or unsupported files."""
+    data = bytes(data)
+    height, width, _, orientation = jpeg_header(data)
+    out = np.empty((height, width) if gray else (height, width, 3), np.uint8)
+    err = ctypes.create_string_buffer(256)
+    _jpeg_status(_lib().jpeg_decode(data, len(data), int(bool(gray)),
+                                    out.ctypes.data, out.size, err,
+                                    len(err)), err)
+    return out, orientation

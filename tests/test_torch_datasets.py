@@ -271,17 +271,15 @@ def test_augmented_trainset_matches_jax():
 
 
 def test_registry():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_dataset("pascalvoc")
     for name in ("synthia", "cityscapes", "toydata", "mixeddata",
-                 "add_random_objects"):
+                 "add_random_objects", "pascalvoc"):
         assert get_dataset(name).__name__ == jax_dataset(name).__name__
+    assert get_dataset("pascalvoc").__module__ == \
+        "modular_semantic_segmentation_torch.datasets.pascalvoc"
     with pytest.raises(UserWarning, match="not found"):
         get_dataset("nonexistent")
     from modular_semantic_segmentation_torch.datasets import (
-        Synthia, UnittestData)
+        PascalVOC, Synthia, UnittestData)
     assert UnittestData is get_dataset("unittest")
     assert Synthia is get_dataset("synthia")
-    with pytest.raises(NotImplementedError):
-        from modular_semantic_segmentation_torch.datasets import \
-            PascalVOC  # noqa: F401
+    assert PascalVOC is get_dataset("pascalvoc")
