@@ -64,6 +64,7 @@ from modular_semantic_segmentation_torch.utils.data_io import (  # noqa: F401
     iterate_batches, prefetch_eval_batches, to_device_prefetched,
     to_numpy, training_batches)
 from modular_semantic_segmentation_torch.utils.tfevents import EventWriter
+from modular_semantic_segmentation_torch.utils import tracing
 
 
 def _remat(loss_fn, generator):
@@ -305,32 +306,35 @@ class Estimator:
         if micro and batchsize % micro:
             raise ValueError(f"microbatch_size={micro} must divide the "
                              f"batch size ({batchsize})")
-        if micro and batchsize > micro:
-            num, den, loss_sum, bn_acc = None, 0.0, 0.0, {}
-            steps = batchsize // micro
-            for i in range(steps):
-                part = {k: v[i::steps] for k, v in batch.items()}
-                loss_i, w, bn_i, g_i = self._microbatch_grads(variables,
-                                                              part)
-                weighted = {k: g * w for k, g in g_i.items()}
-                num = weighted if num is None else {
-                    k: num[k] + weighted[k] for k in num}
-                den = den + w
-                loss_sum = loss_sum + loss_i * w
-                for k, v in bn_i.items():
-                    bn_acc.setdefault(k, []).append(v)
-            scale = 1.0 / torch.clamp(den, min=1e-20)
-            grads = {k: a * scale for k, a in num.items()}
-            loss = loss_sum * scale
-            bn_updates = {k: sum(vs) / len(vs) for k, vs in bn_acc.items()}
-        else:
-            loss, _, bn_updates, grads = self._microbatch_grads(variables,
-                                                                batch)
+        with tracing.span("fit.forward_backward", device=self.device):
+            if micro and batchsize > micro:
+                num, den, loss_sum, bn_acc = None, 0.0, 0.0, {}
+                steps = batchsize // micro
+                for i in range(steps):
+                    part = {k: v[i::steps] for k, v in batch.items()}
+                    loss_i, w, bn_i, g_i = self._microbatch_grads(
+                        variables, part)
+                    weighted = {k: g * w for k, g in g_i.items()}
+                    num = weighted if num is None else {
+                        k: num[k] + weighted[k] for k in num}
+                    den = den + w
+                    loss_sum = loss_sum + loss_i * w
+                    for k, v in bn_i.items():
+                        bn_acc.setdefault(k, []).append(v)
+                scale = 1.0 / torch.clamp(den, min=1e-20)
+                grads = {k: a * scale for k, a in num.items()}
+                loss = loss_sum * scale
+                bn_updates = {k: sum(vs) / len(vs)
+                              for k, vs in bn_acc.items()}
+            else:
+                loss, _, bn_updates, grads = self._microbatch_grads(
+                    variables, batch)
         if self._parallel is not None:
             grads = self._parallel.reduce_grads(grads)
         train_vars, _ = split_trainable(variables, self.trainable)
-        updates, opt_state = self._optimizer.update(grads, opt_state)
-        train_vars = optimizers.apply_updates(train_vars, updates)
+        with tracing.span("fit.optimizer", device=self.device):
+            updates, opt_state = self._optimizer.update(grads, opt_state)
+            train_vars = optimizers.apply_updates(train_vars, updates)
         return {**variables, **train_vars, **bn_updates}, opt_state, loss
 
     def _forward(self, batch):
@@ -392,6 +396,14 @@ class Estimator:
         Batches are assembled in a pool of config ``loader_workers``
         threads (default: the host's cores) and copied to the device by a
         producer thread ahead of the step (``to_device_prefetched``).
+
+        While a profiler records, each step's wait for its batch, the step
+        and, inside it, the forward and backward and the optimizer's
+        update are the spans ``fit.next_batch``, ``fit.step``,
+        ``fit.forward_backward`` and ``fit.optimizer`` of
+        ``utils/tracing.py`` (the last three with their stream time on a
+        card), their request id the global step; the counter
+        ``fit.steps`` counts the steps.
         """
         if self.custom_training:
             raise UserWarning(
@@ -414,9 +426,14 @@ class Estimator:
         start = time.time()
         try:
             for i in range(iterations):
-                batch = next(batches)
-                self.variables, self.opt_state, loss = self._train_step(
-                    self.variables, self.opt_state, batch)
+                step = self.global_step
+                with tracing.span("fit.next_batch", request=step):
+                    batch = next(batches)
+                with tracing.span("fit.step", device=self.device,
+                                  request=step):
+                    self.variables, self.opt_state, loss = self._train_step(
+                        self.variables, self.opt_state, batch)
+                tracing.count("fit.steps")
                 self.global_step += 1
                 if (checkpoint_interval and self.output_dir is not None
                         and self.global_step % checkpoint_interval == 0):

@@ -17,6 +17,7 @@ from modular_semantic_segmentation_torch.models.packed_experts import (
     can_pack_stems, packed_fcn_stems)
 from modular_semantic_segmentation_torch.models.simple_fcn import (
     fcn, fcn_variable_specs)
+from modular_semantic_segmentation_torch.utils import tracing
 
 
 def test_pipeline(ctx, inputs, prefix, expert_model, num_units, num_classes,
@@ -46,16 +47,25 @@ def test_pipeline(ctx, inputs, prefix, expert_model, num_units, num_classes,
 
 def expert_pipelines(ctx, batch, modalities, config):
     """Per-modality expert outputs, ``{modality: test_pipeline(...)}``,
-    with the FCN stems through ``packed_fcn_stems`` where it applies."""
+    with the FCN stems through ``packed_fcn_stems`` where it applies.
+    While a profiler records, the packed stems and each expert are the
+    spans ``fusion.stems`` and ``fusion.expert.<modality>``, with their
+    stream time on a card."""
+    device = batch[modalities[0]].device
     stems = {}
     if can_pack_stems(ctx, batch, modalities, config):
-        stems = packed_fcn_stems(
-            ctx, batch, modalities, config["prefixes"],
-            channel_factor=config.get("channel_factor", 1.0),
-            batch_normalization=config.get("batch_normalization", False))
-    return {m: test_pipeline(ctx, batch[m], config["prefixes"][m],
-                             stem_layers=stems.get(m), **config)
-            for m in modalities}
+        with tracing.span("fusion.stems", device=device):
+            stems = packed_fcn_stems(
+                ctx, batch, modalities, config["prefixes"],
+                channel_factor=config.get("channel_factor", 1.0),
+                batch_normalization=config.get("batch_normalization",
+                                               False))
+    outputs = {}
+    for m in modalities:
+        with tracing.span("fusion.expert." + m, device=device):
+            outputs[m] = test_pipeline(ctx, batch[m], config["prefixes"][m],
+                                       stem_layers=stems.get(m), **config)
+    return outputs
 
 
 class FusionModel(Estimator):
@@ -111,7 +121,8 @@ class FusionModel(Estimator):
     def _test_outputs(self, ctx, batch):
         expert_outputs = expert_pipelines(ctx, batch, self.modalities,
                                           self.config)
-        out = self._fusion(expert_outputs)
+        with tracing.span("fusion.epilogue", device=self.device):
+            out = self._fusion(expert_outputs)
         # per-expert diagnostics for predict(output_attr=...)
         for m in self.modalities:
             out[f"{m}_prob"] = expert_outputs[m]["prob"]

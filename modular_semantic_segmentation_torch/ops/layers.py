@@ -49,6 +49,7 @@ import torch.nn.functional as F
 from modular_semantic_segmentation_torch.ops import int8_conv
 from modular_semantic_segmentation_torch.ops.fast_upsample import (
     diagonal_upsample, same_transpose_crop)
+from modular_semantic_segmentation_torch.utils import tracing
 
 # TF tf.layers.batch_normalization defaults.
 BN_MOMENTUM = 0.99
@@ -196,12 +197,14 @@ def _int8_operands(ctx, kernel, act_scale):
     output channel), kept in ``ctx.kernel_cache`` beside the kernel and
     the scale they were made from: the serving loop makes them once, and
     no frame copies a scale to the card (a copy from pageable host memory
-    would wait for the stream)."""
+    would wait for the stream). While a profiler records, a miss adds one
+    to the counter ``layers.kernel_cache_miss`` (``utils/tracing.py``)."""
     key = ctx.full_name("kernel") + ":int8"
     cached = ctx.kernel_cache.get(key)
     if (cached is not None and cached[0] is kernel
             and cached[1] == act_scale):
         return cached[2]
+    tracing.count("layers.kernel_cache_miss")
     kq, kscale = int8_conv.quantize_kernel(kernel)
     # the float32 of the stored Python float, as jnp.float32 gives it
     ascale = torch.full((1,), act_scale, dtype=torch.float32,
@@ -335,13 +338,16 @@ def _channel_diagonal(ctx, kernel):
 
     The answer is kept in ``ctx.kernel_cache`` beside the kernel it was
     computed for, so a frame served with the same kernel does not wait for
-    the device to check again."""
+    the device to check again; a miss, which blocks the host on the
+    device, counts in ``layers.kernel_cache_miss`` while a profiler
+    records."""
     key = ctx.full_name("kernel")
     if key in ctx.channel_diagonal:
         return ctx.channel_diagonal[key]
     cached = ctx.kernel_cache.get(key)
     if cached is not None and cached[0] is kernel:
         return cached[1]
+    tracing.count("layers.kernel_cache_miss")
     idx = torch.arange(kernel.shape[2], device=kernel.device)
     off = kernel.clone()
     off[:, :, idx, idx] = 0.0

@@ -12,6 +12,13 @@ memory without blocking the host, and each group's outputs come back into
 pinned memory behind a CUDA event, so reading group i waits for group i
 only while later groups keep the card busy. CUDA graphs come later.
 
+While a profiler records, each group's upload, launches (with their
+stream time) and readback, and the wait for its outputs, are spans
+``serve.*`` of ``utils/tracing.py`` sharing the group's request id, and
+the counters ``serve.frames``, ``serve.padded_frames``,
+``serve.upload_bytes``, ``serve.readback_bytes`` and
+``serve.frames_read`` count what they move.
+
 ``export_serving`` writes a model's inference program as a
 ``torch.export`` program beside its weights; ``ExportedServing`` runs it
 without the model classes (it imports ``torch`` and the kernels'
@@ -28,6 +35,7 @@ import torch
 
 from modular_semantic_segmentation_torch.ops.variables import (
     DEFAULT_GENERATOR, Ctx, resolve_device)
+from modular_semantic_segmentation_torch.utils import tracing
 from modular_semantic_segmentation_torch.utils.data_io import to_numpy
 
 
@@ -74,24 +82,41 @@ class InferenceServer:
 
     def _dispatch(self, frames):
         """Queue one (possibly short) group. Returns (outputs, valid,
-        event): host tensors that hold the outputs once ``event`` (None
-        on the CPU) has completed."""
+        event, request): host tensors that hold the outputs once ``event``
+        (None on the CPU) has completed, and the group's request id for
+        its spans (None while no profiler records)."""
         net = self._net
         valid = len(frames)
         padded = frames + [frames[-1]] * (self.unroll - valid)
-        outs = self.group_program([net._batch_to_device(
-            {k: v[None] if hasattr(v, "ndim") else np.asarray(v)[None]
-             for k, v in frame.items()}) for frame in padded])
-        if net.device.type != "cuda":
-            return outs, valid, None
-        host = []
-        for out in outs[:valid]:
-            buf = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-            buf.copy_(out, non_blocking=True)
-            host.append(buf)
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(net.device))
-        return host, valid, event
+        request = tracing.request_id()
+        with tracing.span("serve.upload", request=request):
+            batches = [net._batch_to_device(
+                {k: v[None] if hasattr(v, "ndim") else np.asarray(v)[None]
+                 for k, v in frame.items()}) for frame in padded]
+        with tracing.span("serve.launch", device=net.device,
+                          request=request):
+            outs = self.group_program(batches)
+        if request is not None:
+            tracing.count("serve.frames", valid)
+            tracing.count("serve.padded_frames", self.unroll - valid)
+            tracing.count("serve.upload_bytes", sum(
+                t.nbytes for batch in batches for t in batch.values()))
+        with tracing.span("serve.readback", request=request):
+            if net.device.type != "cuda":
+                host, event = outs, None
+            else:
+                host = []
+                for out in outs[:valid]:
+                    buf = torch.empty(out.shape, dtype=out.dtype,
+                                      pin_memory=True)
+                    buf.copy_(out, non_blocking=True)
+                    host.append(buf)
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(net.device))
+        if request is not None:
+            tracing.count("serve.readback_bytes",
+                          sum(t.nbytes for t in host[:valid]))
+        return host, valid, event, request
 
     def predict_stream(self, frames):
         """Yield one output per input frame, in order, pipelined.
@@ -105,11 +130,14 @@ class InferenceServer:
 
         def drain(limit):
             while len(in_flight) > limit:
-                outs, valid, event = in_flight.popleft()
-                if event is not None:
-                    event.synchronize()
-                for out in outs[:valid]:
-                    yield to_numpy(out)[0]
+                outs, valid, event, request = in_flight.popleft()
+                # no span stays open across a yield
+                with tracing.span("serve.wait", request=request):
+                    if event is not None:
+                        event.synchronize()
+                    arrays = [to_numpy(out)[0] for out in outs[:valid]]
+                tracing.count("serve.frames_read", valid)
+                yield from arrays
 
         for frame in frames:
             group.append(frame)

@@ -1,7 +1,8 @@
 """Timing (counterpart of the JAX package's ``utils/profiling.py``).
 
     * :func:`trace`: a torch.profiler trace of the CPU and the card,
-      written for TensorBoard / Perfetto;
+      written for TensorBoard / Perfetto, and the port's spans and
+      counters over it;
     * :func:`time_fn`: synchronous latency and pipelined throughput of a
       call on the host clock (the timing CLI's primitive);
     * :func:`log_compile_time`: wall clock of a first call;
@@ -19,24 +20,38 @@ back to the CPU.
 """
 
 import contextlib
+import json
 import os
 import time
 
 import numpy as np
 import torch
 
+from modular_semantic_segmentation_torch.utils import tracing
+
 
 @contextlib.contextmanager
 def trace(logdir):
     """Capture a torch.profiler trace of the CPU and the card into
-    ``logdir`` (one Chrome-trace JSON file); yields the profiler."""
+    ``logdir``; yields the profiler.
+
+    Writes ``trace.json``, the Chrome trace, in which the port's spans
+    (``utils/tracing.py``) are the ranges named ``mss.*``, and
+    ``spans.json``: the tracer's snapshot of the capture (per span name
+    its calls, host seconds, self host seconds and stream seconds; the
+    counters) and its records (each span's name, start and end on
+    ``time.perf_counter_ns``, parent, request id and thread). The tracer
+    is reset on entry, so both cover this capture alone."""
     from torch.profiler import ProfilerActivity, profile
     os.makedirs(logdir, exist_ok=True)
+    tracing.reset()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         yield prof
         torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+    with open(os.path.join(logdir, "spans.json"), "w") as f:
+        json.dump(dict(tracing.snapshot(), records=tracing.records()), f)
 
 
 def _tensors(out):

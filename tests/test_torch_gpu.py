@@ -222,6 +222,75 @@ def test_trace_writes_a_chrome_trace_with_the_kernel(cuda, tmp_path):
 
 
 @pytest.mark.gpu
+def test_trace_writes_the_spans_of_served_frames(cuda, tmp_path):
+    """``trace`` writes ``spans.json`` beside ``trace.json``: the served
+    groups' spans with their stream time, the counters and the records;
+    the Chrome trace holds the spans as ``mss.*`` ranges."""
+    import json
+    from modular_semantic_segmentation_torch.serving import InferenceServer
+    from modular_semantic_segmentation_torch.utils.profiling import trace
+    rng = np.random.RandomState(1)
+    cms = {m: rng.rand(6, 6) + np.eye(6) * 5 for m in ("rgb", "depth")}
+    net = _small_fusion("bayes_mix", cuda, confusion_matrices=cms,
+                        compute_dtype="bfloat16")
+    data = _frames()
+    frames = [{"rgb": data["rgb"][i], "depth": data["depth"][i]}
+              for i in range(3)]
+    server = InferenceServer(net, unroll=2)
+    server.predict(frames)
+    with trace(str(tmp_path)):
+        served = server.predict(frames)
+    assert served.shape == (3, 64, 96)
+    with open(tmp_path / "spans.json") as f:
+        spans = json.load(f)
+    assert spans["counters"]["serve.frames"] == 3
+    assert spans["counters"]["serve.frames_read"] == 3
+    assert spans["counters"]["serve.padded_frames"] == 1
+    assert spans["counters"]["serve.readback_bytes"] == 3 * 64 * 96 * 4
+    assert spans["counters"].get("layers.kernel_cache_miss", 0) == 0
+    for name in ("serve.launch", "fusion.expert.rgb", "fusion.expert.depth",
+                 "fusion.epilogue"):
+        assert spans["spans"][name]["stream_s"] > 0, name
+    assert spans["spans"]["serve.upload"]["stream_s"] is None
+    assert spans["spans"]["serve.launch"]["calls"] == 2
+    experts = sum(spans["spans"][n]["stream_s"] for n in (
+        "fusion.stems", "fusion.expert.rgb", "fusion.expert.depth",
+        "fusion.epilogue"))
+    # nested inside the launches on one stream (events resolve ~0.5 us)
+    assert experts <= spans["spans"]["serve.launch"]["stream_s"] + 1e-5
+    assert len(spans["records"]) == sum(
+        s["calls"] for s in spans["spans"].values())
+    with open(tmp_path / "trace.json") as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"mss.serve.launch", "mss.serve.wait",
+            "mss.fusion.epilogue"} <= names
+
+
+@pytest.mark.gpu
+def test_device_spans_fold_as_they_complete(cuda):
+    """More stream spans than the tracer keeps pending: the completed
+    ones are folded into the totals while the profiler records, their
+    events reused, and every span's stream time is counted."""
+    from torch.profiler import ProfilerActivity, profile
+    from modular_semantic_segmentation_torch.utils import tracing
+    tracer = tracing.Tracer()
+    x = torch.ones((256, 256), device=cuda)
+    n = 3 * tracing._FOLD_AT
+    with profile(activities=[ProfilerActivity.CPU]):
+        for _ in range(n):
+            with tracer.span("work", device=cuda):
+                x = x * 1.0
+            torch.cuda.synchronize()
+        assert len(tracer._pending) <= tracing._FOLD_AT + 1
+    snap = tracer.snapshot()
+    assert snap["spans"]["work"]["calls"] == n
+    assert snap["spans"]["work"]["stream_s"] > 0
+    # every pair back in the pool, and no more made than were pending
+    assert len(tracer._pool[torch.cuda.current_device()]) <= \
+        tracing._FOLD_AT + 1
+
+
+@pytest.mark.gpu
 def test_dirichlet_statistics_on_the_card_match_the_cpu(cuda):
     from modular_semantic_segmentation_torch.ops import fusion_math as fm
     rng = np.random.RandomState(5)
