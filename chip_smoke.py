@@ -8,8 +8,9 @@ H100) and the CUDA toolkit. Phases, each printing its own lines:
 
  1. device: the card's name, the device count and nvidia-smi's name and
     power limit;
- 2. build: the three kernels of ``modular_semantic_segmentation_torch/
-    csrc``, one nvcc each, in parallel; ptxas's registers, shared memory
+ 2. build: the five kernel sources of ``modular_semantic_segmentation_
+    torch/csrc`` (the upsample's forward and adjoint are two), one nvcc
+    each, in parallel; ptxas's registers, shared memory
     and spills for each, and the count of HGMMA (wgmma) instructions in
     the stem conv's machine code, which must not be 0; then the host
     library of the input pipeline (``native/host_ops.cc``, g++);
@@ -24,16 +25,24 @@ H100) and the CUDA toolkit. Phases, each printing its own lines:
     at conv1_2, conv2_1 and conv2_2 of the flagship ([1, 768, 384, 64] ->
     64, [1, 384, 192, 64] -> 128, [1, 384, 192, 128] -> 128) and at a
     ragged shape ([2, 37, 53, 16] -> 24), within 1e-2 of the largest plain
-    value. Each is timed with CUDA events, L2 flushed before each call,
-    beside its plain version, a PyTorch yardstick call where one exists
-    (the stem conv's is cuDNN's conv), and its bound; the kernel and its
-    yardstick in turns (yardstick, kernel, kernel, yardstick);
+    value; the upsample kernel pair (kernel D, forward and adjoint)
+    against its float32 plain twins at the flagship's two bf16 serving
+    calls, the training batch's two float32 calls and ragged shapes, and
+    on views 2 bytes off alignment (bf16 within one rounding step,
+    float32 within 1e-5 of the largest value). Each is timed with CUDA
+    events, L2 flushed before each call, beside its plain version, a
+    PyTorch yardstick call where one exists (the stem conv's is cuDNN's
+    conv, the upsample's cuDNN's grouped transposed conv and, for the
+    adjoint, the grouped conv autograd ran for it), and its bound; the
+    kernel and its yardstick in turns (yardstick, kernel, kernel,
+    yardstick);
  4. measure step: two full-width SimpleFCN experts (rgb, depth; num_units
     64, 14 classes, seeded weights) score 4 seeded frames with labels;
  5. Dirichlet fit: DirichletFusion.fit on those 4 frames (float32
     experts, sufficient statistics on the card, EM on the host);
  6. Bayes serving: BayesFusion on the measured confusion matrices,
-    bfloat16, InferenceServer(unroll=4) over 8 frames;
+    bfloat16, InferenceServer(unroll=4) over 8 frames, launching the
+    upsample kernel 4 times a frame;
  7. Dirichlet serving: the fitted DirichletFusion(use_pallas=True),
     bfloat16, 8 frames, with no torch.stack on the path (the kernel reads
     the experts' probabilities in place);
@@ -201,12 +210,12 @@ H100) and the CUDA toolkit. Phases, each printing its own lines:
     ms per step, peak memory, ms/frame scored, kernel A's launches.
 
 The launch counts are set to 0 just before phase 4 and read just after
-phase 7 (confusion and Dirichlet kernels), set to 0 just before and read
-just after phase 8 (stem conv), phase 10 (confusion kernel), the int8
-path of phase 11 (confusion and Dirichlet kernels, ``_int_mm``), phase
-13 (confusion kernel), phase 14's serving path (confusion and
-Dirichlet kernels) and training path (confusion kernel), phase 16
-(confusion and Dirichlet kernels), phase 17 (confusion kernel),
+phase 7 (confusion, Dirichlet and upsample kernels), set to 0 just
+before and read just after phase 8 (stem conv), phase 10 (confusion
+kernel), the int8 path of phase 11 (confusion and Dirichlet kernels,
+``_int_mm``), phase 13 (confusion kernel), phase 14's serving path
+(confusion and Dirichlet kernels) and training path (confusion kernel),
+phase 16 (confusion and Dirichlet kernels), phase 17 (confusion kernel),
 phase 18 (confusion kernel), the artifacts' loader of phase 19 (its own
 process; confusion and Dirichlet kernels), each rank of phase 20
 (confusion kernel) and phase 21 (confusion kernel); the kernels' line
@@ -251,6 +260,27 @@ STEM_RTOL = 1e-2
 TRACE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "traces")
 TIE_RTOL = 1e-5
+# kernel D, (dtype, [N, H, W, C], k, s, timed): the flagship's two serving
+# calls (bf16, the bilinear kernels), the training batch's two (float32,
+# batch 4 of 368x640; the second timed), then ragged shapes: C not a
+# multiple of 8, k not a multiple of s, more than 2 taps a dimension, and
+# float64 (the float64 reference steps)
+UPSAMPLE_SHAPES = (
+    ("bfloat16", (1, HEIGHT // 16, WIDTH // 16, NUM_UNITS), 4, 2, True),
+    ("bfloat16", (1, HEIGHT // 8, WIDTH // 8, NUM_UNITS), 16, 8, True),
+    ("float32", (4, 23, 40, NUM_UNITS), 4, 2, False),
+    ("float32", (4, 46, 80, NUM_UNITS), 16, 8, True),
+    ("bfloat16", (2, 7, 13, 14), 3, 2, False),
+    ("float32", (1, 5, 9, 1), 5, 2, False),
+    ("bfloat16", (3, 6, 11, 24), 16, 8, False),
+    ("float32", (2, 9, 4, 14), 9, 2, False),
+    ("bfloat16", (1, 4, 5, 6), 2, 2, False),
+    ("float64", (2, 12, 10, 4), 16, 8, False),
+)
+# float32 and float64 kernels against the float32 twins (FMAs against
+# separate multiplies and adds, and, in the adjoint, another order of the
+# sums)
+UPSAMPLE_RTOL = 1e-5
 # the float32 train step on the card against the CPU and against float64:
 # the loss, each tensor's delta over its scale, and the tensors that no
 # max pool routing its gradient differently reaches (arithmetic alone)
@@ -316,10 +346,11 @@ def ptxas_usage(log):
             mangled = found.group(1)
             named = re.search(r"\d+([a-z_]+_kernel)", mangled)
             base = named.group(1) if named else mangled
-            args = re.search(r"_kernelI(13__nv_bfloat16|f)((?:Li\d+E)+)",
+            args = re.search(r"_kernelI(13__nv_bfloat16|f|d)((?:Li\d+E)+)",
                              mangled)
+            kinds = {"f": "f32", "d": "f64"}
             function = base if args is None else "{}<{}>".format(
-                base, ", ".join(["f32" if args.group(1) == "f" else "bf16"]
+                base, ", ".join([kinds.get(args.group(1), "bf16")]
                                 + re.findall(r"\d+", args.group(2))))
         elif "spill" in line:
             spills = line.strip()
@@ -592,6 +623,162 @@ def check_stem_conv(card):
                   "kernel_ms": out["kernel_ms"],
                   "plain_ms": out["plain_ms"], "bound_ms": bound,
                   "bound_by": bound_by, "library_ms": out["library_ms"]}
+    return record
+
+
+def bf16_error(got, want, magnitude, terms):
+    """max |got - want| over what one bf16 rounding of the float32 result
+    allows: a bf16 step of ``want`` (the spacing of bf16 values at its
+    magnitude), plus the float32 sums' own rounding (``terms`` products,
+    each to 2**-24 of the sum of |products|, ``magnitude``), by which two
+    float32 orders of the same sum differ where it cancels."""
+    step = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(
+        torch.finfo(torch.bfloat16).tiny))) - 7)
+    allowed = step + terms * 2.0 ** -24 * magnitude
+    return float(((got.float() - want).abs() / allowed).max())
+
+
+def upsample_library(x, diag, s):
+    """The path the kernel replaced: cuDNN's grouped transposed conv on the
+    channels-last NCHW view, SAME crop, back to NHWC."""
+    import torch.nn.functional as F
+    from modular_semantic_segmentation_torch.ops.cuda.upsample import \
+        same_transpose_crop
+    k, (n, h, w, c) = diag.shape[0], x.shape
+    lo = same_transpose_crop(k, s)
+    out = F.conv_transpose2d(x.permute(0, 3, 1, 2),
+                             diag.permute(2, 0, 1).unsqueeze(1), stride=s,
+                             groups=c)
+    return out[:, :, lo:lo + h * s, lo:lo + w * s].permute(0, 2, 3, 1)
+
+
+def upsample_library_adjoint(g, diag, s):
+    """What autograd ran for the replaced path's input gradient: the crop's
+    zero padding, then cuDNN's grouped conv with stride s."""
+    import torch.nn.functional as F
+    from modular_semantic_segmentation_torch.ops.cuda.upsample import \
+        same_transpose_crop
+    k, (n, ho, wo, c) = diag.shape[0], g.shape
+    lo = same_transpose_crop(k, s)
+    hi_h, hi_w = (k - s) - lo, (k - s) - lo
+    full = F.pad(g.permute(0, 3, 1, 2), (lo, hi_w, lo, hi_h))
+    return F.conv2d(full, diag.permute(2, 0, 1).unsqueeze(1), stride=s,
+                    groups=c).permute(0, 2, 3, 1)
+
+
+def check_upsample(card):
+    """Kernel D (``csrc/upsample.cu``), forward and adjoint, against the
+    plain twins on the card at every shape of UPSAMPLE_SHAPES and on an
+    input view 2 bytes off 16-byte alignment; the flagship's shapes timed
+    beside the twins, the replaced cuDNN path and the bound. Returns the
+    kernel's record (the 16x16/s8 serving call)."""
+    from modular_semantic_segmentation_torch.ops.cuda import upsample
+    from modular_semantic_segmentation_torch.utils.profiling import (
+        cold_ms, kernel_ms)
+    from modular_semantic_segmentation_torch.ops.init import bilinear_filter
+    record = None
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    adjoint = upsample.diagonal_upsample_adjoint
+    for dtype_name, shape, k, s, timed_shape in UPSAMPLE_SHAPES:
+        dtype = getattr(torch, dtype_name)
+        n, h, w, c = shape
+        x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        g = torch.randn((n, h * s, w * s, c), generator=gen,
+                        device="cuda").to(dtype)
+        if timed_shape:
+            idx = np.arange(c)
+            diag = torch.from_numpy(bilinear_filter((k, k, c, c))[
+                :, :, idx, idx]).to("cuda", dtype)
+        else:
+            diag = torch.randn((k, k, c), generator=gen,
+                               device="cuda").to(dtype)
+        views = [("", x, g)]
+        if not timed_shape and dtype == torch.bfloat16:
+            # one element in: 2-byte aligned, not 16
+            buf = torch.empty(x.numel() + 1, dtype=dtype, device="cuda")
+            buf[1:] = x.reshape(-1)
+            gbuf = torch.empty(g.numel() + 1, dtype=dtype, device="cuda")
+            gbuf[1:] = g.reshape(-1)
+            views.append((" (view 2 bytes off alignment)",
+                          buf[1:].view(shape), gbuf[1:].view(g.shape)))
+        for what, xv, gv in views:
+            got = upsample.diagonal_upsample(xv, diag, s)
+            got_adj = adjoint(gv, diag, s)
+            want32 = upsample.diagonal_upsample_plain(xv.float(),
+                                                      diag.float(), s)
+            want32_adj = upsample.diagonal_upsample_adjoint_plain(
+                gv.float(), diag.float(), s)
+            torch.cuda.synchronize()
+            if dtype == torch.bfloat16:
+                taps = (-(-k // s)) ** 2
+                err = bf16_error(
+                    got, want32, upsample.diagonal_upsample_plain(
+                        xv.float().abs(), diag.float().abs(), s), taps)
+                err_adj = bf16_error(
+                    got_adj, want32_adj,
+                    upsample.diagonal_upsample_adjoint_plain(
+                        gv.float().abs(), diag.float().abs(), s),
+                    taps * s * s)
+                limit, unit = 1.0, "of one bf16 rounding of the float32 twin"
+            else:
+                err = float((got - want32).abs().max()
+                            / want32.abs().max().clamp_min(1e-30))
+                err_adj = float((got_adj - want32_adj).abs().max()
+                                / want32_adj.abs().max().clamp_min(1e-30))
+                limit, unit = UPSAMPLE_RTOL, "of max|float32 twin|"
+            label = (f"kernel upsample {dtype_name} {list(shape)} "
+                     f"{k}x{k}/s{s}{what}")
+            vec = upsample.vector_width(c, xv.element_size(),
+                                        xv.data_ptr(), diag.data_ptr())
+            print(f"{label}: forward {err:.3g}, adjoint {err_adj:.3g} "
+                  f"(limit {limit} {unit}), vector width {vec}")
+            check(err <= limit and err_adj <= limit,
+                  f"{label}: the kernels differ from the float32 twins")
+        if not timed_shape:
+            continue
+        lib = upsample_library(x, diag, s)
+        lib_adj = upsample_library_adjoint(g, diag, s)
+        scale = float(want32.abs().max())
+        check(float((lib.float() - want32).abs().max()) <= 0.02 * scale
+              and float((lib_adj.float() - want32_adj).abs().max())
+              <= 0.02 * float(want32_adj.abs().max()),
+              f"{label}: the replaced cuDNN path disagrees with the twins")
+        itemsize = x.element_size()
+        peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else \
+            F32_FLOPS_PER_S
+        flops = 2 * k * k * c * n * h * w
+        for direction, fn, alone_name, plain_fn, library_fn in (
+                ("forward", lambda: upsample.diagonal_upsample(x, diag, s),
+                 "upsample_forward_kernel",
+                 lambda: upsample.diagonal_upsample_plain(x, diag, s),
+                 lambda: upsample_library(x, diag, s)),
+                ("adjoint", lambda: adjoint(g, diag, s),
+                 "upsample_adjoint_kernel",
+                 lambda: upsample.diagonal_upsample_adjoint_plain(g, diag,
+                                                                  s),
+                 lambda: upsample_library_adjoint(g, diag, s))):
+            n_bytes = itemsize * (x.numel() + diag.numel() + g.numel())
+            bound, bound_by = bound_ms(n_bytes, flops, peak)
+            library = [cold_ms(library_fn)]
+            ms = [cold_ms(fn), cold_ms(fn)]
+            library.append(cold_ms(library_fn))
+            alone = kernel_ms(fn, alone_name)
+            plain = cold_ms(plain_fn)
+            print(f"{label} {direction}: call {sum(ms) / 2:.4f} ms (kernel "
+                  f"alone {_ms(alone)}), plain {plain:.4f} ms, cuDNN "
+                  f"grouped conv {_runs(library)} ms, bound {bound:.4f} ms "
+                  f"({bound_by}: {n_bytes / 1e6:.2f} MB, "
+                  f"{flops / 1e6:.1f} MFLOP) on {card}")
+            if (direction, dtype, k) == ("forward", torch.bfloat16, 16):
+                record = {"name": "upsample", "route": "cuda",
+                          "source": "modular_semantic_segmentation_torch/"
+                                    "csrc/upsample.cu",
+                          "replaces": "none (XLA in the JAX package: "
+                                      "ops/fast_upsample.py:73)",
+                          "max_abs_err": err, "ms": sum(ms) / 2,
+                          "kernel_ms": alone, "plain_ms": plain,
+                          "bound_ms": bound, "bound_by": bound_by,
+                          "library_ms": sum(library) / 2}
     return record
 
 
@@ -3454,7 +3641,7 @@ def main():
 
     name, count, smi_line = timed("device", phase_device)
     from modular_semantic_segmentation_torch.ops.cuda import (
-        confusion, dirichlet, stem_conv)
+        confusion, dirichlet, stem_conv, upsample)
     from modular_semantic_segmentation_torch.ops.layers import \
         configure_float32
     configure_float32()
@@ -3463,11 +3650,12 @@ def main():
         timed(f"confusion check, {kind}", check_confusion, smi_line, kind,
               *confusion_pairs(kind))
     records = [timed("dirichlet check", check_dirichlet, smi_line),
-               timed("stem conv check", check_stem_conv, smi_line)]
+               timed("stem conv check", check_stem_conv, smi_line),
+               timed("upsample check", check_upsample, smi_line)]
     kernels = (confusion.KERNEL, dirichlet.KERNEL)
 
     # ---- the main path: launch counts from 0
-    for kernel in kernels:
+    for kernel in kernels + (upsample.KERNEL,):
         kernel.launches = 0
     experts = build_experts()
     frames = make_frames(1, MEASURE_FRAMES)
@@ -3502,11 +3690,17 @@ def main():
                     for i in range(SERVE_FRAMES)]
     bayes = fusion_model("bayes_fusion", experts, confusion_matrices=cms,
                          compute_dtype="bfloat16")
+    before = upsample.KERNEL.launches
     out, bayes_ms = timed("Bayes serving", serve, bayes, serve_frames)
     check_labels(out, "Bayes serving")
+    served = 4 * SERVE_FRAMES  # a warm-up and three timed runs
+    upsample_per_frame = (upsample.KERNEL.launches - before) / served
     print(f"Bayes serving: {_runs(bayes_ms)} ms/frame over {SERVE_FRAMES} "
           f"frames at {HEIGHT}x{WIDTH}, bf16, unroll {UNROLL} (host clock, "
-          f"synchronised; three runs after a warm-up) on {smi_line}")
+          f"synchronised; three runs after a warm-up), upsample launches "
+          f"{upsample_per_frame:g} a frame on {smi_line}")
+    check(upsample_per_frame == 4, "Bayes serving did not launch the "
+          "upsample kernel 4 times a frame")
 
     before = dirichlet.KERNEL.launches
     stacks = []
@@ -3535,7 +3729,7 @@ def main():
           f"Dirichlet serving launched the kernel {dirichlet_launches} "
           f"times for {SERVE_FRAMES} frames")
 
-    launches = {k.source: k.launches for k in kernels}
+    launches = {k.source: k.launches for k in kernels + (upsample.KERNEL,)}
     # ---- end of the main path
 
     # ---- the stem conv's path: its launch count from 0

@@ -12,7 +12,9 @@ under ``modular_semantic_segmentation_torch/_build/`` (listed in
 spills per kernel) in ``_build/<name>-<hash>.log``. The file name carries
 a hash of the source and the flags, so an edited source is rebuilt. No
 PyTorch header is compiled, which keeps a build to seconds. ``build()``
-starts one nvcc per source, all at once.
+starts one nvcc per source, all at once. ``build_in_background(name)``
+starts one source's build in a thread, so that it runs under a process's
+other set-up; ``build()`` and the first launch wait for it.
 """
 
 import ctypes
@@ -20,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 
 _PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -27,7 +30,12 @@ CSRC_DIR = os.path.join(_PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(_PACKAGE_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNEL_SOURCES = ("confusion", "dirichlet", "stem_conv")
+KERNEL_SOURCES = ("confusion", "dirichlet", "stem_conv", "upsample",
+                  "upsample_adjoint")
+
+# source name -> the thread building it in the background
+_BACKGROUND = {}
+_BACKGROUND_LOCK = threading.Lock()
 
 
 def find_nvcc():
@@ -51,17 +59,53 @@ def find_nvcc():
 
 
 def library_path(name):
-    """(source path, shared-library path) of kernel source ``name``."""
+    """(source path, shared-library path) of kernel source ``name``; the
+    hash covers the source, the flags and every shared header
+    (``csrc/*.cuh``), which a source may include."""
     source = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(source, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for path in [source] + [os.path.join(CSRC_DIR, f) for f in headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return source, os.path.join(BUILD_DIR,
                                 f"{name}-{digest.hexdigest()[:16]}.so")
 
 
 def build(names=KERNEL_SOURCES, timeout=600):
     """Compile the named sources that are not built yet, one nvcc each, in
-    parallel. Raises with nvcc's output if any build fails."""
+    parallel, after any background build of them has ended. Raises with
+    nvcc's output if any build fails."""
+    with _BACKGROUND_LOCK:
+        pending = [_BACKGROUND.pop(name) for name in names
+                   if name in _BACKGROUND]
+    for thread in pending:
+        thread.join()
+    _compile(names, timeout)
+
+
+def build_in_background(name):
+    """Start compiling source ``name`` in a daemon thread, unless it is
+    built or being built. A failed build is left to the next ``build()``
+    of the source, which compiles it again and raises with nvcc's
+    output."""
+    with _BACKGROUND_LOCK:
+        if name in _BACKGROUND or os.path.exists(library_path(name)[1]):
+            return
+        thread = threading.Thread(target=_compile_quietly, args=(name,),
+                                  name=f"nvcc {name}", daemon=True)
+        _BACKGROUND[name] = thread
+        thread.start()
+
+
+def _compile_quietly(name):
+    try:
+        _compile((name,))
+    except (OSError, RuntimeError, subprocess.SubprocessError):
+        pass
+
+
+def _compile(names, timeout=600):
     jobs = []
     try:
         for name in names:
@@ -69,7 +113,8 @@ def build(names=KERNEL_SOURCES, timeout=600):
             if os.path.exists(target):
                 continue
             os.makedirs(BUILD_DIR, exist_ok=True)
-            partial = f"{target}.{os.getpid()}.part"
+            partial = (f"{target}.{os.getpid()}."
+                       f"{threading.get_ident()}.part")
             proc = subprocess.Popen(
                 [find_nvcc(), *NVCC_FLAGS, "-o", partial, source],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)

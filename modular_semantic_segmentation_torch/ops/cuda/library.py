@@ -5,7 +5,10 @@ program reaches are PyTorch operators in the ``msstorch`` namespace,
 registered with ``torch.library.custom_op`` where their wrappers live:
 
     * ``msstorch::dirichlet_label`` (``ops/cuda/dirichlet.py``, kernel B);
-    * ``msstorch::confusion_counts`` (``ops/cuda/confusion.py``, kernel A).
+    * ``msstorch::confusion_counts`` (``ops/cuda/confusion.py``, kernel A);
+    * ``msstorch::diagonal_upsample`` (``ops/cuda/upsample.py``, kernel
+      D, the frozen bilinear upsample; its gradient launches the adjoint
+      kernel).
 
 Each launches its kernel for CUDA tensors and runs the kernel's plain
 version for CPU tensors; a fake implementation gives ``torch.export`` the
@@ -17,4 +20,4 @@ after that (``serving.ExportedServing`` imports it first), and
 """
 
 from modular_semantic_segmentation_torch.ops.cuda import (  # noqa: F401
-    confusion, dirichlet)
+    confusion, dirichlet, upsample)

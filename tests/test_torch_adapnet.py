@@ -161,7 +161,9 @@ def test_deconv_kernel_gradient_matches_jax(trainable, use_bias):
     """A square-channel bilinear (channel-diagonal) kernel: trainable, it
     takes the dense ``conv_transpose2d`` and its off-diagonal weights get
     JAX's gradient;
-    frozen, the depthwise path gives the same output."""
+    frozen, the channel-diagonal path gives the same output, and, as it
+    computes no gradient for the kernel, refuses a kernel that asks for
+    one."""
     rng = np.random.RandomState(5)
     c, k, s = 3, 4, 2
     x = rng.randn(1, 4, 6, c).astype(np.float32)
@@ -177,16 +179,23 @@ def test_deconv_kernel_gradient_matches_jax(trainable, use_bias):
         return jnp.sum(out * ct), out
     (_, want), jgrad = jax.value_and_grad(jax_loss, has_aux=True)(
         jnp.asarray(kernel))
-    tk = torch.from_numpy(kernel).requires_grad_()
-    got = tll.deconv2d(Ctx({"d/kernel": tk, **from_jax_variables(
-        bias, device="cpu")}), torch.from_numpy(x), c, k, "d", strides=s,
-        batch_normalization=False, trainable=trainable, use_bias=use_bias)
-    (tgrad,) = torch.autograd.grad((got * torch.from_numpy(ct)).sum(), tk)
+    def deconv(tk):
+        return tll.deconv2d(Ctx({"d/kernel": tk, **from_jax_variables(
+            bias, device="cpu")}), torch.from_numpy(x), c, k, "d",
+            strides=s, batch_normalization=False, trainable=trainable,
+            use_bias=use_bias)
+    tk = torch.from_numpy(kernel).requires_grad_(trainable)
+    got = deconv(tk)
     _assert_scaled_close(got.detach().numpy(), want, 1e-5)
     if trainable:
+        (tgrad,) = torch.autograd.grad((got * torch.from_numpy(ct)).sum(),
+                                       tk)
         off = np.ones((c, c), bool) & ~np.eye(c, dtype=bool)
         assert np.abs(np.asarray(jgrad)[:, :, off]).max() > 0.1
         _assert_scaled_close(tgrad.numpy(), jgrad, 1e-3)
+    else:
+        with pytest.raises(ValueError, match="no gradient for the kernel"):
+            deconv(tk.detach().requires_grad_())
 
 
 @pytest.mark.parametrize("shape,kernel,stride,dilation,bn", [

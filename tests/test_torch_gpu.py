@@ -755,3 +755,168 @@ def test_fit_with_device_augmentation_and_workers_on_the_card(cuda):
     assert confusion.KERNEL.launches > before
     measures, _ = net.score(data.get_testset())
     assert np.isfinite(measures["total_accuracy"])
+
+
+# kernel D, the frozen upsample: (dtype, [N, H, W, C], k, s)
+UPSAMPLE_CASES = [
+    # the flagship's two bf16 serving calls at 768x384
+    (torch.bfloat16, (1, 48, 24, 64), 4, 2),
+    (torch.bfloat16, (1, 96, 48, 64), 16, 8),
+    # the training batch's two float32 calls: 4 frames of 368x640
+    (torch.float32, (4, 23, 40, 64), 4, 2),
+    (torch.float32, (4, 46, 80, 64), 16, 8),
+    # ragged: C not a multiple of 8, k not a multiple of s, odd sizes,
+    # more than two taps a dimension, k == s
+    (torch.bfloat16, (2, 7, 13, 14), 3, 2),
+    (torch.float32, (1, 5, 9, 1), 5, 2),
+    (torch.bfloat16, (3, 6, 11, 12), 16, 8),
+    (torch.float32, (2, 9, 4, 14), 9, 2),
+    (torch.bfloat16, (1, 4, 5, 6), 2, 2),
+    # float64, as the float64 reference steps on the card run it
+    (torch.float64, (2, 12, 10, 4), 16, 8),
+    (torch.float64, (1, 7, 9, 3), 4, 2),
+]
+
+
+def _bf16_error(got, want, magnitude, terms):
+    """max |got - want| over what one bf16 rounding of the float32 result
+    allows: a bf16 step of ``want``, plus the float32 sums' own rounding
+    (``terms`` products, each to 2**-24 of the sum of |products|,
+    ``magnitude``), by which two float32 orders of the same sum differ
+    where it cancels."""
+    step = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(
+        torch.finfo(torch.bfloat16).tiny))) - 7)
+    allowed = step + terms * 2.0 ** -24 * magnitude
+    return float(((got.float() - want).abs() / allowed).max())
+
+
+def _off_alignment(t, offset):
+    """A copy of ``t`` that starts ``offset`` elements past an allocation's
+    (256-byte aligned) start."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype,shape,k,s", UPSAMPLE_CASES)
+def test_upsample_kernels_match_the_twins(cuda, dtype, shape, k, s, offset):
+    """The forward and the adjoint kernel against the plain twins in
+    float32 on the card, on the same (bf16-rounded) values: float32 within
+    1e-5 of the largest value (FMAs, and another order of the adjoint's
+    sums), bf16 within one bf16 rounding of the float32 result
+    (:func:`_bf16_error`), float64 against the float64 twins within 1e-12.
+    Offset 1: the input and the gradient start one element past a 16-byte
+    boundary, so the wrapper narrows its vectors."""
+    from modular_semantic_segmentation_torch.ops.cuda import upsample
+    gen = torch.Generator(device=cuda).manual_seed(k * 100 + s)
+    n, h, w, c = shape
+    x = _off_alignment(torch.randn(shape, generator=gen, device=cuda).to(
+        dtype), offset)
+    g = _off_alignment(torch.randn((n, h * s, w * s, c), generator=gen,
+                                   device=cuda).to(dtype), offset)
+    diag = torch.randn((k, k, c), generator=gen, device=cuda).to(dtype)
+    before = (upsample.KERNEL.launches, upsample.ADJOINT.launches)
+    got = upsample.diagonal_upsample(x, diag, s)
+    got_adj = upsample.diagonal_upsample_adjoint(g, diag, s)
+    torch.cuda.synchronize()
+    assert (upsample.KERNEL.launches, upsample.ADJOINT.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert got.dtype == got_adj.dtype == dtype
+    plain = upsample.diagonal_upsample_plain
+    adjoint = upsample.diagonal_upsample_adjoint_plain
+    taps = (-(-k // s)) ** 2
+    wide = torch.float64 if dtype == torch.float64 else torch.float32
+    for out, fn, src, terms in ((got, plain, x, taps),
+                                (got_adj, adjoint, g, taps * s * s)):
+        ref = fn(src.to(wide), diag.to(wide), s)
+        if dtype == torch.bfloat16:
+            magnitude = fn(src.float().abs(), diag.float().abs(), s)
+            assert _bf16_error(out, ref, magnitude, terms) <= 1.0
+        else:
+            rtol = 1e-12 if dtype == torch.float64 else 1e-5
+            assert float((out - ref).abs().max()) <= rtol * float(
+                ref.abs().max())
+
+
+@pytest.mark.gpu
+def test_upsample_gradient_on_the_card_matches_the_cpu(cuda):
+    """Autograd through ``diagonal_upsample`` launches the adjoint kernel,
+    and its input gradient equals the CPU's (the plain twins)."""
+    from modular_semantic_segmentation_torch.ops.cuda import upsample
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn(2, 23, 40, 16, generator=gen)
+    diag = torch.randn(4, 4, 16, generator=gen)
+    ct = torch.randn(2, 46, 80, 16, generator=gen)
+    grads = []
+    for device in ("cpu", cuda):
+        xd = x.to(device).requires_grad_()
+        before = upsample.ADJOINT.launches
+        out = upsample.diagonal_upsample(xd, diag.to(device), 2)
+        (grad,) = torch.autograd.grad((out * ct.to(device)).sum(), xd)
+        grads.append(grad.cpu())
+        assert upsample.ADJOINT.launches == before + (device == cuda)
+    assert float((grads[1] - grads[0]).abs().max()) <= 1e-5 * float(
+        grads[0].abs().max())
+
+
+@pytest.mark.gpu
+def test_served_frames_launch_the_upsample_four_times(cuda):
+    """Each served frame of a two-expert fusion launches the forward kernel
+    four times (two deconvs an expert), counted by the wrapper and, while a
+    profiler records, by ``upsample.forward``; no adjoint."""
+    from torch.profiler import ProfilerActivity, profile
+    from modular_semantic_segmentation_torch.ops.cuda import upsample
+    from modular_semantic_segmentation_torch.serving import InferenceServer
+    from modular_semantic_segmentation_torch.utils import tracing
+    rng = np.random.RandomState(1)
+    cms = {m: rng.rand(6, 6) + np.eye(6) * 5 for m in ("rgb", "depth")}
+    net = _small_fusion("bayes_mix", cuda, confusion_matrices=cms,
+                        compute_dtype="bfloat16")
+    data = _frames(4)
+    frames = [{"rgb": data["rgb"][i], "depth": data["depth"][i]}
+              for i in range(4)]
+    server = InferenceServer(net, unroll=2)
+    server.predict(frames)
+    before = upsample.KERNEL.launches
+    tracing.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        server.predict(frames)
+        torch.cuda.synchronize()
+    counters = tracing.snapshot()["counters"]
+    assert upsample.KERNEL.launches - before == 4 * 4
+    assert counters["upsample.forward"] == 4 * 4
+    assert "upsample.adjoint" not in counters
+
+
+@pytest.mark.gpu
+def test_exported_program_reaches_the_upsample_kernel(cuda, tmp_path,
+                                                      deterministic_cudnn):
+    """``export_serving`` records ``msstorch::diagonal_upsample``; the
+    artifact launches the kernel and serves the labels of
+    ``InferenceServer``."""
+    from modular_semantic_segmentation_torch.ops.cuda import upsample
+    from modular_semantic_segmentation_torch.serving import (
+        ExportedServing, InferenceServer, export_serving)
+    rng = np.random.RandomState(2)
+    cms = {m: rng.rand(6, 6) + np.eye(6) * 5 for m in ("rgb", "depth")}
+    net = _small_fusion("bayes_mix", cuda, confusion_matrices=cms,
+                        compute_dtype="bfloat16")
+    data = _frames(2)
+    frames = [{"rgb": data["rgb"][i], "depth": data["depth"][i]}
+              for i in range(2)]
+    want = InferenceServer(net, unroll=1).predict(frames)
+    art = export_serving(net, str(tmp_path / "artifact"),
+                         {m: data[m][:1] for m in ("rgb", "depth")})
+    program = torch.export.load(str(tmp_path / "artifact" / "program.pt2"))
+    targets = [str(node.target) for node in program.graph.nodes]
+    assert targets.count("msstorch.diagonal_upsample.default") == 4
+    served = ExportedServing(art)
+    before = upsample.KERNEL.launches
+    got = np.stack([served.predict({m: data[m][i:i + 1]
+                                    for m in ("rgb", "depth")})[0]
+                    for i in range(2)])
+    assert upsample.KERNEL.launches - before == 2 * 4
+    np.testing.assert_array_equal(got, want)

@@ -138,13 +138,19 @@ def test_dense_deconv_matches_jax(kernel, stride, cout):
     _close(want, got)
 
 
-def test_diagonal_upsample_matches_jax():
+@pytest.mark.parametrize("k,s", [(4, 2), (16, 8)])
+@pytest.mark.parametrize("shape", [(2, 3, 5, 4), (1, 5, 7, 1),
+                                   (2, 3, 5, 14), (1, 3, 7, 64)])
+def test_diagonal_upsample_matches_jax(k, s, shape):
+    """The port's phase gather from its tap table (on the CPU, the kernel's
+    plain twin) against the JAX package's phase einsums, for both of the
+    experts' strides (JAX's needs k % s == 0), odd H and W."""
     rng = np.random.RandomState(5)
-    x = rng.randn(2, 3, 5, 4).astype(np.float32)
-    diag = rng.randn(16, 16, 4).astype(np.float32)
-    _close(jfu.diagonal_upsample(jnp.asarray(x), jnp.asarray(diag), 8),
+    x = rng.randn(*shape).astype(np.float32)
+    diag = rng.randn(k, k, shape[-1]).astype(np.float32)
+    _close(jfu.diagonal_upsample(jnp.asarray(x), jnp.asarray(diag), s),
            tfu.diagonal_upsample(torch.from_numpy(x),
-                                 torch.from_numpy(diag), 8))
+                                 torch.from_numpy(diag), s))
 
 
 def test_softmax_and_log_softmax_match_jax():
