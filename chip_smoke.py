@@ -41,8 +41,9 @@ H100) and the CUDA toolkit. Phases, each printing its own lines:
  5. Dirichlet fit: DirichletFusion.fit on those 4 frames (float32
     experts, sufficient statistics on the card, EM on the host);
  6. Bayes serving: BayesFusion on the measured confusion matrices,
-    bfloat16, InferenceServer(unroll=4) over 8 frames, launching the
-    upsample kernel 4 times a frame;
+    bfloat16, InferenceServer(unroll=4) over 8 frames from a captured
+    CUDA graph, running the upsample kernel 4 times a frame (counted in
+    the device trace of a replayed run: a replay calls no wrapper);
  7. Dirichlet serving: the fitted DirichletFusion(use_pallas=True),
     bfloat16, 8 frames, with no torch.stack on the path (the kernel reads
     the experts' probabilities in place);
@@ -829,6 +830,34 @@ def serve(net, frames, repeats=3):
     return out, times
 
 
+# the device names of kernels D and B
+UPSAMPLE_KERNEL = "upsample_forward_kernel"
+DIRICHLET_KERNEL = "dirichlet_label_kernel"
+
+
+def served_kernel_runs(net, frames, names):
+    """The kernels of ``names`` (substrings of their device names) that ran
+    on the card, and the graph launches, over ``frames`` served by an
+    InferenceServer(unroll=UNROLL) whose every group replays its captured
+    graph, counted in the profiler's device trace: a replay calls no
+    kernel wrapper, so the wrappers' counters do not see it. Returns
+    ({name: kernel runs}, graph launches)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from modular_semantic_segmentation_torch.serving import InferenceServer
+    server = InferenceServer(net, unroll=UNROLL)
+    server.predict(frames)  # the warm-up and the capture
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        server.predict(frames)
+        torch.cuda.synchronize()
+    events = prof.events()
+    runs = {name: sum(1 for e in events if e.device_type == DeviceType.CUDA
+                      and name in e.name) for name in names}
+    return runs, sum(1 for e in events if "GraphLaunch" in e.name)
+
+
 def serving_profile(net, frames, label):
     """Device time by kernel over one served group, from torch.profiler
     (a separate, traced run: the timed runs are untraced). The trace is
@@ -1208,7 +1237,6 @@ def int8_serving(bayes, dirich, frames, serve_frames, card):
     # ---- the int8 path: launch counts from 0
     for counter in (confusion.KERNEL, dirichlet.KERNEL, int8_conv.INT_MM):
         counter.launches = 0
-    b_int8 = 0
     for name, net in (("Bayes", bayes), ("Dirichlet", dirich)):
         runs = {"bf16": [], "int8": []}
         labels = {}
@@ -1217,10 +1245,7 @@ def int8_serving(bayes, dirich, frames, serve_frames, card):
                 net.dequantize_serving()
             else:
                 net.quantize_for_serving(scales)
-            before = dirichlet.KERNEL.launches
             labels[mode], ms = serve(net, serve_frames)
-            if mode == "int8":
-                b_int8 += dirichlet.KERNEL.launches - before
             runs[mode] += ms
             check_labels(labels[mode], f"{name} int8 serving ({mode})")
         agree = float((labels["int8"] == labels["bf16"]).mean())
@@ -1231,8 +1256,16 @@ def int8_serving(bayes, dirich, frames, serve_frames, card):
               f"{_runs(runs['int8'])} ms/frame, bf16 {_runs(runs['bf16'])} "
               f"ms/frame; int8 and bf16 fused labels agree on "
               f"{100 * agree:.2f}% of pixels on {card}")
-    check(b_int8 >= 2 * 4 * SERVE_FRAMES, f"int8 Dirichlet serving launched "
-          f"kernel B {b_int8} times")
+    # the timed servers replay graphs, which call no wrapper: count the
+    # kernel's runs in the device trace of one replayed int8 run
+    dirich.quantize_for_serving(scales)
+    runs, graphs = served_kernel_runs(dirich, serve_frames,
+                                      (DIRICHLET_KERNEL,))
+    b_int8 = runs[DIRICHLET_KERNEL]
+    dirich.dequantize_serving()
+    check(b_int8 == SERVE_FRAMES and graphs == SERVE_FRAMES // UNROLL,
+          f"int8 Dirichlet serving ran kernel B {b_int8} times in "
+          f"{graphs} graph launches for {SERVE_FRAMES} frames")
     bayes.quantize_for_serving(scales)
     measures, cm = bayes.score(frames)
     labelled = int(((frames["labels"] >= 0)
@@ -1246,7 +1279,8 @@ def int8_serving(bayes, dirich, frames, serve_frames, card):
     print(f"int8 score of {MEASURE_FRAMES} frames: mean_IoU "
           f"{measures['mean_IoU']:.4f}; int8 path launches: confusion "
           f"{launches['confusion']}, dirichlet {launches['dirichlet']} "
-          f"({b_int8} in int8 serving), _int_mm {launches['int_mm']}")
+          f"(wrapper calls) and {b_int8} runs in a traced int8 serving run, "
+          f"_int_mm {launches['int_mm']}")
     check(launches["confusion"] > 0, "int8 score launched no kernel A")
     check(launches["int_mm"] > 0, "the int8 path ran no _int_mm")
     serving_profile(bayes, serve_frames, "Bayes-int8")
@@ -1550,16 +1584,19 @@ def adapnet_serving(frames, card):
     finally:
         de.find_dirichlet_priors = solver
     for name, net in fusions.items():
-        before = dirichlet.KERNEL.launches
         out, ms = serve(net, served)
         check_labels(out, f"AdapNet {name} serving", ADAPNET_SERVE_FRAMES)
-        launches = dirichlet.KERNEL.launches - before
+        runs, graphs = served_kernel_runs(net, served, (DIRICHLET_KERNEL,))
+        launches = runs[DIRICHLET_KERNEL]
         print(f"AdapNet {name} serving: {_runs(ms)} ms/frame over "
               f"{ADAPNET_SERVE_FRAMES} frames at {HEIGHT}x{WIDTH}, bf16, "
-              f"unroll {UNROLL}, dirichlet launches {launches} (host clock,"
-              f" synchronised; three runs after a warm-up) on {card}")
-        check((launches > 0) == (name == "Dirichlet"), f"AdapNet {name} "
-              f"serving launched kernel B {launches} times")
+              f"unroll {UNROLL} (host clock, synchronised; three runs after "
+              f"a warm-up); a traced replayed run: {graphs} graph launches, "
+              f"dirichlet kernel runs {launches} (device trace) on {card}")
+        want = ADAPNET_SERVE_FRAMES if name == "Dirichlet" else 0
+        check(launches == want and graphs == ADAPNET_SERVE_FRAMES // UNROLL,
+              f"AdapNet {name} serving ran kernel B {launches} times in "
+              f"{graphs} graph launches")
     dirich = fusions["Dirichlet"]
     one = {k: v[:1] for k, v in frames.items()}
     probs = [torch.from_numpy(dirich.predict(
@@ -2092,6 +2129,10 @@ class KernelChecks:
 
         def label(probs, coeffs, bias):
             got = real_label(probs, coeffs, bias)
+            if torch.cuda.is_current_stream_capturing():
+                # a served group being captured: the check would wait for
+                # the card; the group's eager warm-up was checked
+                return got
             scores = dirichlet.dirichlet_scores_plain(
                 torch.stack([p.float() for p in probs]), coeffs.to(got.device),
                 bias.to(got.device))
@@ -3690,19 +3731,25 @@ def main():
                     for i in range(SERVE_FRAMES)]
     bayes = fusion_model("bayes_fusion", experts, confusion_matrices=cms,
                          compute_dtype="bfloat16")
-    before = upsample.KERNEL.launches
+    # the main path's launches: the wrappers' on the eager steps before
+    # serving, and the kernels that ran in one traced replayed run of each
+    # served model (a replay calls no wrapper)
+    launches = {k.source: k.launches for k in kernels + (upsample.KERNEL,)}
+    groups = SERVE_FRAMES // UNROLL
     out, bayes_ms = timed("Bayes serving", serve, bayes, serve_frames)
     check_labels(out, "Bayes serving")
-    served = 4 * SERVE_FRAMES  # a warm-up and three timed runs
-    upsample_per_frame = (upsample.KERNEL.launches - before) / served
+    runs, graphs = served_kernel_runs(bayes, serve_frames,
+                                      (UPSAMPLE_KERNEL,))
+    launches["upsample"] += runs[UPSAMPLE_KERNEL]
     print(f"Bayes serving: {_runs(bayes_ms)} ms/frame over {SERVE_FRAMES} "
           f"frames at {HEIGHT}x{WIDTH}, bf16, unroll {UNROLL} (host clock, "
-          f"synchronised; three runs after a warm-up), upsample launches "
-          f"{upsample_per_frame:g} a frame on {smi_line}")
-    check(upsample_per_frame == 4, "Bayes serving did not launch the "
-          "upsample kernel 4 times a frame")
+          f"synchronised; three runs after a warm-up); a traced replayed "
+          f"run: {graphs} graph launches, upsample kernel runs "
+          f"{runs[UPSAMPLE_KERNEL]} (device trace) on {smi_line}")
+    check(runs[UPSAMPLE_KERNEL] == 4 * SERVE_FRAMES and graphs == groups,
+          f"Bayes serving ran the upsample kernel {runs[UPSAMPLE_KERNEL]} "
+          f"times in {graphs} graph launches for {SERVE_FRAMES} frames")
 
-    before = dirichlet.KERNEL.launches
     stacks = []
     real_stack = torch.stack
 
@@ -3719,17 +3766,22 @@ def main():
     check(not stacks, f"Dirichlet serving called torch.stack {len(stacks)} "
           "times")
     check_labels(out, "Dirichlet serving")
-    dirichlet_launches = dirichlet.KERNEL.launches - before
+    runs, graphs = served_kernel_runs(dirich, serve_frames,
+                                      (DIRICHLET_KERNEL, UPSAMPLE_KERNEL))
+    launches["dirichlet"] += runs[DIRICHLET_KERNEL]
+    launches["upsample"] += runs[UPSAMPLE_KERNEL]
     print(f"Dirichlet serving: {_runs(dirichlet_ms)} ms/frame over "
           f"{SERVE_FRAMES} frames at {HEIGHT}x{WIDTH}, bf16, unroll "
-          f"{UNROLL}, fitted parameters, dirichlet launches "
-          f"{dirichlet_launches}, torch.stack calls 0 (host clock, "
-          f"synchronised; three runs after a warm-up) on {smi_line}")
-    check(dirichlet_launches >= SERVE_FRAMES,
-          f"Dirichlet serving launched the kernel {dirichlet_launches} "
-          f"times for {SERVE_FRAMES} frames")
-
-    launches = {k.source: k.launches for k in kernels + (upsample.KERNEL,)}
+          f"{UNROLL}, fitted parameters, torch.stack calls 0 (host clock, "
+          f"synchronised; three runs after a warm-up); a traced replayed "
+          f"run: {graphs} graph launches, dirichlet kernel runs "
+          f"{runs[DIRICHLET_KERNEL]}, upsample kernel runs "
+          f"{runs[UPSAMPLE_KERNEL]} (device trace) on {smi_line}")
+    check(runs[DIRICHLET_KERNEL] == SERVE_FRAMES
+          and runs[UPSAMPLE_KERNEL] == 4 * SERVE_FRAMES and graphs == groups,
+          f"Dirichlet serving ran kernel B {runs[DIRICHLET_KERNEL]} and the "
+          f"upsample kernel {runs[UPSAMPLE_KERNEL]} times in {graphs} graph "
+          f"launches for {SERVE_FRAMES} frames")
     # ---- end of the main path
 
     # ---- the stem conv's path: its launch count from 0

@@ -60,6 +60,11 @@ class BayesianFCN(UncertaintyModel):
                                   dropout_layers=tuple(dropout_layers),
                                   **standard_config)
 
+    def _eager_serving_reason(self):
+        if self.config["dropout_rate"] > 0:
+            return "MC dropout draws from the model's generator every frame"
+        return None
+
     def _variable_specs(self):
         return fcn_variable_specs(
             self.prefix, self._input_channels(self.modality),

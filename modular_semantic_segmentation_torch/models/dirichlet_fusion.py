@@ -84,6 +84,16 @@ class DirichletFusion(FusionModel):
         FusionModel.__init__(self, name="DirichletFusion",
                              output_dir=output_dir, **standard_config)
 
+    def _serving_state(self):
+        # the kernel takes its tables by value, and fit makes new ones
+        return super()._serving_state() + (self._tables,)
+
+    def _eager_serving_reason(self):
+        if not self.config.get("use_pallas"):
+            return ("the plain fusion copies its parameters from host "
+                    "arrays to the device every frame")
+        return None
+
     def _prior(self):
         data_prior = self.class_counts / (1e-20 + self.class_counts.sum())
         return fm.class_prior(self.config["class_prior"], data_prior)

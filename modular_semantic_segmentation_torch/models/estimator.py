@@ -352,6 +352,19 @@ class Estimator:
                       **self._parallel_ctx())
             return self._test_outputs(ctx, self._preprocess(batch))
 
+    def _serving_state(self):
+        """The objects the served forward reads besides its inputs and the
+        serving mode: ``serving.InferenceServer`` replays a captured CUDA
+        graph only while each is, by identity, the one it captured."""
+        return tuple(self.variables.values())
+
+    def _eager_serving_reason(self):
+        """Why ``serving.InferenceServer`` runs this model's groups eagerly
+        rather than from a captured CUDA graph, or None. A family whose
+        test forward draws from the model's generator, or copies host
+        arrays to the device, says so."""
+        return None
+
     def _eval_step(self, batch):
         """Test outputs and, with labels in the batch, its confusion
         matrix, for a batch on the device. Distributed, the outputs are

@@ -35,6 +35,11 @@ class UncertaintyDirichletFusion(DirichletFusion):
         DirichletFusion.__init__(self, output_dir=output_dir,
                                  **standard_config)
 
+    def _eager_serving_reason(self):
+        return ("MC dropout draws from the model's generator every "
+                "frame, and the fusion copies its parameters from host "
+                "arrays to the device")
+
     def _test_outputs(self, ctx, batch):
         num_classes = self.config["num_classes"]
         probs, uncertainties = {}, {}

@@ -45,6 +45,11 @@ class VarianceFusion(FusionModel):
         FusionModel.__init__(self, name="VarianceFusion",
                              output_dir=output_dir, **standard_config)
 
+    def _eager_serving_reason(self):
+        if self.config["dropout_rate"] > 0 and self.config["num_samples"] > 1:
+            return "MC dropout draws from the model's generator every frame"
+        return None
+
     def _tail_prob(self, ctx, pool3, prefix, dropout):
         """pool3 -> class probabilities; stochastic iff ``dropout``."""
         cfg = self.config

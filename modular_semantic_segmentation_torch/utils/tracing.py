@@ -11,9 +11,10 @@ a torch profiler records in this process.
 one shared no-op context and ``count`` returns at once: no
 ``record_function``, no CUDA event, no clock read and no allocation.
 While a program is traced by ``torch.export`` or compiled
-(``torch.compiler.is_compiling()``) both stay off too, so no exported
-program holds a profiler range or an event, and no span times the
-tracing.
+(``torch.compiler.is_compiling()``), or captured into a CUDA graph
+(``torch.cuda.is_current_stream_capturing()``), both stay off too, so no
+exported program or graph holds a profiler range or an event, and no span
+times the tracing.
 
 **On**, a span enters ``record_function("mss." + name)``, so its range
 lies in the profiler's Chrome trace on the clock of the kernels, copies
@@ -62,9 +63,18 @@ def _cuda_event():
 
 def active():
     """True while a torch profiler records in this process, outside a
-    program being exported or compiled."""
+    program being exported or compiled and outside a CUDA graph capture
+    on this thread's stream."""
     return (_profiler._is_profiler_enabled
-            and not torch.compiler.is_compiling())
+            and not torch.compiler.is_compiling()
+            and not _capturing())
+
+
+def _capturing():
+    # a capture needs CUDA initialized; asked first, it also keeps a
+    # build without CUDA from raising
+    return (torch.cuda.is_initialized()
+            and torch.cuda.is_current_stream_capturing())
 
 
 class Tracer:

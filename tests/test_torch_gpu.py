@@ -225,12 +225,19 @@ def test_trace_writes_a_chrome_trace_with_the_kernel(cuda, tmp_path):
 def test_trace_writes_the_spans_of_served_frames(cuda, tmp_path):
     """``trace`` writes ``spans.json`` beside ``trace.json``: the served
     groups' spans with their stream time, the counters and the records;
-    the Chrome trace holds the spans as ``mss.*`` ranges."""
+    the Chrome trace holds the spans as ``mss.*`` ranges. The Bayes
+    fusion's groups replay a graph captured before the trace, so they run
+    none of the forward's spans; the plain Dirichlet fusion is served
+    eagerly in the same trace, and its forward's spans nest inside its
+    ``serve.launch`` spans, by parent and on the stream."""
     import json
     from modular_semantic_segmentation_torch.serving import InferenceServer
+    from modular_semantic_segmentation_torch.utils import tracing
     from modular_semantic_segmentation_torch.utils.profiling import trace
     rng = np.random.RandomState(1)
     cms = {m: rng.rand(6, 6) + np.eye(6) * 5 for m in ("rgb", "depth")}
+    params = {m: rng.rand(6, 6) * 4 + 0.5 for m in ("rgb", "depth")}
+    params["class_counts"] = rng.randint(100, 1000, 6)
     net = _small_fusion("bayes_mix", cuda, confusion_matrices=cms,
                         compute_dtype="bfloat16")
     data = _frames()
@@ -238,28 +245,47 @@ def test_trace_writes_the_spans_of_served_frames(cuda, tmp_path):
               for i in range(3)]
     server = InferenceServer(net, unroll=2)
     server.predict(frames)
+    eager = InferenceServer(_small_fusion("dirichlet_mix", cuda,
+                                          dirichlet_params=params), unroll=2)
+    eager.predict(frames)
     with trace(str(tmp_path)):
         served = server.predict(frames)
-    assert served.shape == (3, 64, 96)
+        torch.cuda.synchronize()
+        replayed = tracing.snapshot()["spans"]
+        eager_served = eager.predict(frames)
+    assert served.shape == eager_served.shape == (3, 64, 96)
+    assert not any(name.startswith("fusion.") for name in replayed)
     with open(tmp_path / "spans.json") as f:
         spans = json.load(f)
-    assert spans["counters"]["serve.frames"] == 3
-    assert spans["counters"]["serve.frames_read"] == 3
-    assert spans["counters"]["serve.padded_frames"] == 1
-    assert spans["counters"]["serve.readback_bytes"] == 3 * 64 * 96 * 4
+    assert spans["counters"]["serve.frames"] == 2 * 3
+    assert spans["counters"]["serve.frames_read"] == 2 * 3
+    assert spans["counters"]["serve.padded_frames"] == 2 * 1
+    assert spans["counters"]["serve.readback_bytes"] == 2 * 3 * 64 * 96 * 4
+    assert spans["counters"]["serve.graph_replays"] == 2
+    assert spans["counters"]["serve.eager_groups"] == 2
+    assert "serve.graph_captures" not in spans["counters"]
     assert spans["counters"].get("layers.kernel_cache_miss", 0) == 0
     for name in ("serve.launch", "fusion.expert.rgb", "fusion.expert.depth",
                  "fusion.epilogue"):
         assert spans["spans"][name]["stream_s"] > 0, name
     assert spans["spans"]["serve.upload"]["stream_s"] is None
-    assert spans["spans"]["serve.launch"]["calls"] == 2
+    assert spans["spans"]["serve.launch"]["calls"] == 2 + 2
+    # the eager server's forwards, one a frame of its two groups
+    assert spans["spans"]["fusion.epilogue"]["calls"] == 2 * 2
+    records = {r["id"]: r for r in spans["records"]}
+    assert len(records) == sum(s["calls"] for s in spans["spans"].values())
+    for record in records.values():
+        if record["name"].startswith("fusion."):
+            parent = records[record["parent"]]
+            assert parent["name"] == "serve.launch", record
+            assert parent["request"] == record["request"]
     experts = sum(spans["spans"][n]["stream_s"] for n in (
-        "fusion.stems", "fusion.expert.rgb", "fusion.expert.depth",
-        "fusion.epilogue"))
-    # nested inside the launches on one stream (events resolve ~0.5 us)
-    assert experts <= spans["spans"]["serve.launch"]["stream_s"] + 1e-5
-    assert len(spans["records"]) == sum(
-        s["calls"] for s in spans["spans"].values())
+        "fusion.expert.rgb", "fusion.expert.depth", "fusion.epilogue"))
+    eager_launches = (spans["spans"]["serve.launch"]["stream_s"]
+                      - replayed["serve.launch"]["stream_s"])
+    # nested inside the eager launches on one stream (events resolve
+    # ~0.5 us)
+    assert experts <= eager_launches + 1e-5
     with open(tmp_path / "trace.json") as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
     assert {"mss.serve.launch", "mss.serve.wait",
@@ -365,7 +391,8 @@ def test_score_and_serving_on_the_card(cuda, deterministic_cudnn):
         np.testing.assert_array_equal(served, predictions)
         assert confusion.KERNEL.launches - before[0] == 1 + 3
         if net.config.get("use_pallas"):
-            # the eval step, score, predict, and two groups of two frames
+            # the eval step, score, predict, and the server's warm-up group
+            # and captured group of two frames each (replays run no Python)
             assert dirichlet.KERNEL.launches - before[1] == 1 + 3 + 3 + 4
 
 
@@ -864,9 +891,13 @@ def test_upsample_gradient_on_the_card_matches_the_cpu(cuda):
 
 @pytest.mark.gpu
 def test_served_frames_launch_the_upsample_four_times(cuda):
-    """Each served frame of a two-expert fusion launches the forward kernel
-    four times (two deconvs an expert), counted by the wrapper and, while a
-    profiler records, by ``upsample.forward``; no adjoint."""
+    """Each served frame of a two-expert fusion runs the forward kernel
+    four times (two deconvs an expert), and no adjoint. The first group
+    launches it from the wrapper, counted there and, while a profiler
+    records, by ``upsample.forward``; the second is captured (the wrapper
+    counts; the counter, off during a capture, does not); later groups
+    replay the graph, which the profiler's device trace shows: one graph
+    launch a group, four kernels a frame, no wrapper call."""
     from torch.profiler import ProfilerActivity, profile
     from modular_semantic_segmentation_torch.ops.cuda import upsample
     from modular_semantic_segmentation_torch.serving import InferenceServer
@@ -879,16 +910,28 @@ def test_served_frames_launch_the_upsample_four_times(cuda):
     frames = [{"rgb": data["rgb"][i], "depth": data["depth"][i]}
               for i in range(4)]
     server = InferenceServer(net, unroll=2)
-    server.predict(frames)
     before = upsample.KERNEL.launches
     tracing.reset()
     with profile(activities=[ProfilerActivity.CPU]):
         server.predict(frames)
         torch.cuda.synchronize()
     counters = tracing.snapshot()["counters"]
-    assert upsample.KERNEL.launches - before == 4 * 4
-    assert counters["upsample.forward"] == 4 * 4
+    assert upsample.KERNEL.launches - before == 2 * 4 + 2 * 4
+    assert counters["upsample.forward"] == 2 * 4
     assert "upsample.adjoint" not in counters
+    before = upsample.KERNEL.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        server.predict(frames)
+        torch.cuda.synchronize()
+    assert upsample.KERNEL.launches == before
+    events = prof.events()
+    kernels = [e for e in events if "upsample_forward_kernel" in e.name
+               and e.device_type == torch.autograd.DeviceType.CUDA]
+    graphs = [e for e in events if "GraphLaunch" in e.name]
+    assert len(kernels) == 4 * 4
+    assert len(graphs) == 2
+    assert not any("upsample_adjoint" in e.name for e in events)
 
 
 @pytest.mark.gpu
@@ -920,3 +963,119 @@ def test_exported_program_reaches_the_upsample_kernel(cuda, tmp_path,
                     for i in range(2)])
     assert upsample.KERNEL.launches - before == 2 * 4
     np.testing.assert_array_equal(got, want)
+
+
+def _flagship(device, expert_model="fcn", num_classes=14, **config):
+    """The benchmark's fcn_rgbd fusion at its widths (64 units, 14
+    classes, no batch norm), Bayes-fused, bf16; AdapNet experts with
+    ``expert_model='adapnet'``."""
+    from modular_semantic_segmentation_torch.models import get_model
+    rng = np.random.RandomState(3)
+    cms = {m: rng.rand(num_classes, num_classes) + np.eye(num_classes) * 5
+           for m in ("rgb", "depth")}
+    return get_model("bayes_mix")(
+        data_description=(
+            {"labels": np.int32, "rgb": np.float32, "depth": np.float32},
+            {"rgb": (None, None, 3), "depth": (None, None, 1),
+             "labels": (None, None)}, num_classes),
+        num_units=64, expert_model=expert_model,
+        prefixes={"rgb": "rgb", "depth": "depth"}, confusion_matrices=cms,
+        compute_dtype="bfloat16", device=device, **config)
+
+
+def _distinct_frames(n, height, width, seed=0):
+    rng = np.random.RandomState(seed)
+    return [{"rgb": (rng.rand(height, width, 3) * 255).astype(np.float32),
+             "depth": rng.rand(height, width, 1).astype(np.float32)}
+            for _ in range(n)]
+
+
+def _eager_outputs(net, frames, attr):
+    """Each frame's ``attr`` from the model's eager forward, one by one,
+    the frame uploaded as the server uploads it: a batch of one with the
+    batch's stride (numpy's ``v[None]`` has a zero stride there, which
+    sends every convolution down cuDNN's NCHW path)."""
+    from modular_semantic_segmentation_torch.utils.data_io import to_numpy
+    return np.stack([
+        to_numpy(net._forward(net._batch_to_device(
+            {k: np.stack([v]) for k, v in frame.items()}))[attr])[0]
+        for frame in frames])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,size,unroll,in_flight,n", [
+    ("fcn", (768, 384), 4, 2, 11),
+    ("fcn", (768, 384), 1, 1, 4),
+    ("fcn_int8", (768, 384), 4, 2, 11),
+    ("adapnet", (384, 192), 2, 2, 5)])
+def test_graph_served_outputs_equal_the_eager_forward(
+        cuda, deterministic_cudnn, case, size, unroll, in_flight, n):
+    """Labels and each expert's probabilities served from a captured graph
+    equal the eager forward's bit for bit, with distinct frames in every
+    group (a staging buffer reused too early would show) and a padded
+    tail; the server replays one graph."""
+    from modular_semantic_segmentation_torch.serving import InferenceServer
+    net = _flagship(cuda, expert_model="adapnet" if case == "adapnet"
+                    else "fcn")
+    frames = _distinct_frames(n, *size, seed=unroll)
+    if case == "fcn_int8":
+        measure = _distinct_frames(2, *size, seed=99)
+        scales = net.quantize_for_serving(
+            {k: np.stack([f[k] for f in measure]) for k in ("rgb", "depth")},
+            num_batches=1)
+        assert scales
+    for attr in ("prediction", "rgb_prob", "depth_prob"):
+        server = InferenceServer(net, unroll=unroll, max_in_flight=in_flight,
+                                 output_attr=attr)
+        got = server.predict(frames)
+        (entry,) = server._graphs.values()
+        assert entry.graph is not None
+        np.testing.assert_array_equal(got, _eager_outputs(net, frames, attr))
+
+
+@pytest.mark.gpu
+def test_graph_served_int8_labels_outlast_a_forward_at_other_scales(
+        cuda, deterministic_cudnn):
+    """A forward at other int8 scales replaces the model's cached int8
+    kernels and scales; a server that captured at the first scales keeps
+    the ones its graph reads, and still serves the eager labels at its
+    own scales, though the freed memory is written over meanwhile."""
+    from modular_semantic_segmentation_torch.serving import InferenceServer
+    net = _flagship(cuda)
+    frames = _distinct_frames(6, 384, 192, seed=5)
+    measure = _distinct_frames(2, 384, 192, seed=98)
+    scales = net.quantize_for_serving(
+        {k: np.stack([f[k] for f in measure]) for k in ("rgb", "depth")},
+        num_batches=1)
+    want = _eager_outputs(net, frames, "prediction")
+    server = InferenceServer(net, unroll=2)
+    np.testing.assert_array_equal(server.predict(frames), want)
+    net.quantize_for_serving({k: 0.25 * v for k, v in scales.items()})
+    other = _eager_outputs(net, frames, "prediction")
+    assert (other != want).any()
+    scrawl = [torch.full((1 << 20,), 77, dtype=torch.int8, device=cuda)
+              for _ in range(256)]
+    got = server.predict(frames)
+    del scrawl
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.gpu
+def test_mc_dropout_fusion_is_served_eagerly_on_the_card(
+        cuda, deterministic_cudnn):
+    """The MC-dropout Variance fusion draws from the model's generator, so
+    the server runs it eagerly: no graph, and its labels are the eager
+    forward's from the same generator state."""
+    from modular_semantic_segmentation_torch.serving import (
+        InferenceServer, eager_reason)
+    net = _small_fusion("variance", cuda, dropout_rate=0.5, num_samples=3,
+                        compute_dtype="bfloat16")
+    assert "generator" in eager_reason(net)
+    frames = _distinct_frames(3, 64, 96)
+    state = net._generator.get_state()
+    server = InferenceServer(net, unroll=1, max_in_flight=1)
+    got = server.predict(frames)
+    assert server._backend is None and not server._graphs
+    net._generator.set_state(state)
+    np.testing.assert_array_equal(got,
+                                  _eager_outputs(net, frames, "prediction"))

@@ -252,6 +252,32 @@ def test_the_ring_drops_records_and_keeps_totals():
     assert small.snapshot() == {"spans": {}, "counters": {}}
 
 
+def test_spans_and_counters_are_off_while_a_stream_captures(monkeypatch):
+    """While this thread's CUDA stream captures a graph no span or counter
+    records (a span's timing event would be captured into the graph);
+    before CUDA is initialized no capture is asked for, so a build without
+    CUDA records as it did."""
+    tracer = tracing.Tracer()
+    with _recording():
+        assert not tracing._capturing()
+        with tracer.span("before"):
+            tracer.count("seen")
+        monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+        monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                            lambda: True)
+        assert not tracing.active()
+        assert tracer.span("inside") is tracing._OFF
+        tracer.count("hidden")
+        monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                            lambda: False)
+        assert tracing.active()
+        with tracer.span("after"):
+            pass
+    snap = tracer.snapshot()
+    assert set(snap["spans"]) == {"before", "after"}
+    assert snap["counters"] == {"seen": 1}
+
+
 def test_kernel_cache_misses_only_on_the_first_frame():
     server = InferenceServer(_fusion(), unroll=1)
     frames = _frames(2)
