@@ -783,6 +783,79 @@ def check_upsample(card):
     return record
 
 
+# kernel E, the served convolutions' epilogue, ([N, H, W, C], ReLU): the
+# outputs of conv1_2, conv4_3 and the decoder's score at 768x384 (bf16;
+# the first is the kernel's record)
+EPILOGUE_SHAPES = (((1, HEIGHT, WIDTH, NUM_UNITS), True),
+                   ((1, HEIGHT // 8, WIDTH // 8, 512), True),
+                   ((1, HEIGHT, WIDTH, NUM_CLASSES), False))
+
+
+def check_conv_epilogue(card):
+    """Kernel E (``csrc/conv_epilogue.cu``, in place) against the chain it
+    replaces (its plain twin: ``x + bias`` in float32, the cast to bf16,
+    the ReLU) at EPILOGUE_SHAPES, bit for bit where the chain's value is a
+    number and NaN where it is NaN; each shape
+    timed (CUDA events after an L2 flush) beside the chain and the bound.
+    Returns the kernel's record (conv1_2's output)."""
+    from modular_semantic_segmentation_torch.ops.cuda import conv_epilogue
+    from modular_semantic_segmentation_torch.utils.profiling import (
+        cold_ms, kernel_ms)
+    record = None
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    for shape, relu in EPILOGUE_SHAPES:
+        c = shape[-1]
+        x = (torch.randn(shape, generator=gen, device="cuda") * 3).to(
+            torch.bfloat16)
+        x.view(-1)[:3] = torch.tensor([float("nan"), -0.0, 0.0],
+                                      device="cuda")
+        bias = torch.randn(c, generator=gen, device="cuda")
+        bias[:2] = torch.tensor([-0.0, 2.0 ** -8], device="cuda")
+        want = conv_epilogue.bias_act_plain(x, bias, relu)
+        got = conv_epilogue.bias_act_(x.clone(), bias, relu)
+        torch.cuda.synchronize()
+        nan = torch.isnan(want.float())
+        label = f"kernel conv_epilogue bf16 {list(shape)} relu {relu}"
+        check(torch.equal(torch.isnan(got.float()), nan)
+              and torch.equal(got.view(torch.int16)[~nan],
+                              want.view(torch.int16)[~nan]),
+              f"{label}: the kernel differs from the chain")
+        y = x.clone()
+
+        def fn():
+            conv_epilogue.bias_act_(y, bias, relu)
+
+        def chain():
+            conv_epilogue.bias_act_plain(x, bias, relu)
+
+        n_bytes = 2 * x.element_size() * x.numel() + 4 * c
+        bound, bound_by = bound_ms(n_bytes)
+        library = [cold_ms(chain)]
+        ms = [cold_ms(fn), cold_ms(fn)]
+        library.append(cold_ms(chain))
+        alone = kernel_ms(fn, "conv_epilogue_kernel")
+        vec = conv_epilogue.vector_width(x.numel(), y.data_ptr())
+        rate = "not measured" if alone is None else \
+            f"{n_bytes / alone / 1e6:.0f} GB/s"
+        print(f"{label}: bit for bit the chain's (NaN where it is NaN), "
+              f"in place; vector width {vec}; call "
+              f"{sum(ms) / 2:.4f} ms (kernel alone {_ms(alone)}, {rate}), "
+              f"the chain (plain twin: add, cast, relu) {_runs(library)} "
+              f"ms, bound {bound:.4f} ms ({bound_by}: "
+              f"{n_bytes / 1e6:.2f} MB) on {card}")
+        if record is None:
+            record = {"name": "conv_epilogue", "route": "cuda",
+                      "source": "modular_semantic_segmentation_torch/csrc/"
+                                "conv_epilogue.cu",
+                      "replaces": "none (XLA in the JAX package: the bias, "
+                                  "cast and ReLU of ops/layers.py conv2d)",
+                      "max_abs_err": 0.0, "ms": sum(ms) / 2,
+                      "kernel_ms": alone, "plain_ms": sum(library) / 2,
+                      "bound_ms": bound, "bound_by": bound_by,
+                      "library_ms": sum(library) / 2}
+    return record
+
+
 def make_frames(seed, count):
     rng = np.random.RandomState(seed)
     return {
@@ -830,9 +903,10 @@ def serve(net, frames, repeats=3):
     return out, times
 
 
-# the device names of kernels D and B
+# the device names of kernels D, B and E
 UPSAMPLE_KERNEL = "upsample_forward_kernel"
 DIRICHLET_KERNEL = "dirichlet_label_kernel"
+EPILOGUE_KERNEL = "conv_epilogue_kernel"
 
 
 def served_kernel_runs(net, frames, names):
@@ -3682,7 +3756,7 @@ def main():
 
     name, count, smi_line = timed("device", phase_device)
     from modular_semantic_segmentation_torch.ops.cuda import (
-        confusion, dirichlet, stem_conv, upsample)
+        confusion, conv_epilogue, dirichlet, stem_conv, upsample)
     from modular_semantic_segmentation_torch.ops.layers import \
         configure_float32
     configure_float32()
@@ -3692,11 +3766,13 @@ def main():
               *confusion_pairs(kind))
     records = [timed("dirichlet check", check_dirichlet, smi_line),
                timed("stem conv check", check_stem_conv, smi_line),
-               timed("upsample check", check_upsample, smi_line)]
+               timed("upsample check", check_upsample, smi_line),
+               timed("epilogue check", check_conv_epilogue, smi_line)]
     kernels = (confusion.KERNEL, dirichlet.KERNEL)
 
     # ---- the main path: launch counts from 0
-    for kernel in kernels + (upsample.KERNEL,):
+    served_kernels = (upsample.KERNEL, conv_epilogue.KERNEL)
+    for kernel in kernels + served_kernels:
         kernel.launches = 0
     experts = build_experts()
     frames = make_frames(1, MEASURE_FRAMES)
@@ -3734,21 +3810,27 @@ def main():
     # the main path's launches: the wrappers' on the eager steps before
     # serving, and the kernels that ran in one traced replayed run of each
     # served model (a replay calls no wrapper)
-    launches = {k.source: k.launches for k in kernels + (upsample.KERNEL,)}
+    launches = {k.source: k.launches for k in kernels + served_kernels}
     groups = SERVE_FRAMES // UNROLL
     out, bayes_ms = timed("Bayes serving", serve, bayes, serve_frames)
     check_labels(out, "Bayes serving")
     runs, graphs = served_kernel_runs(bayes, serve_frames,
-                                      (UPSAMPLE_KERNEL,))
+                                      (UPSAMPLE_KERNEL, EPILOGUE_KERNEL))
     launches["upsample"] += runs[UPSAMPLE_KERNEL]
+    # the wrapper's calls since the count was set to 0, and the replays
+    launches["conv_epilogue"] = (conv_epilogue.KERNEL.launches
+                                 + runs[EPILOGUE_KERNEL])
     print(f"Bayes serving: {_runs(bayes_ms)} ms/frame over {SERVE_FRAMES} "
           f"frames at {HEIGHT}x{WIDTH}, bf16, unroll {UNROLL} (host clock, "
           f"synchronised; three runs after a warm-up); a traced replayed "
           f"run: {graphs} graph launches, upsample kernel runs "
-          f"{runs[UPSAMPLE_KERNEL]} (device trace) on {smi_line}")
-    check(runs[UPSAMPLE_KERNEL] == 4 * SERVE_FRAMES and graphs == groups,
+          f"{runs[UPSAMPLE_KERNEL]}, epilogue kernel runs "
+          f"{runs[EPILOGUE_KERNEL]} (device trace) on {smi_line}")
+    check(runs[UPSAMPLE_KERNEL] == 4 * SERVE_FRAMES
+          and runs[EPILOGUE_KERNEL] == 32 * SERVE_FRAMES and graphs == groups,
           f"Bayes serving ran the upsample kernel {runs[UPSAMPLE_KERNEL]} "
-          f"times in {graphs} graph launches for {SERVE_FRAMES} frames")
+          f"and the epilogue kernel {runs[EPILOGUE_KERNEL]} times in "
+          f"{graphs} graph launches for {SERVE_FRAMES} frames")
 
     stacks = []
     real_stack = torch.stack

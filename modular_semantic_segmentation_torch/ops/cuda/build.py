@@ -31,7 +31,7 @@ BUILD_DIR = os.path.join(_PACKAGE_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNEL_SOURCES = ("confusion", "dirichlet", "stem_conv", "upsample",
-                  "upsample_adjoint")
+                  "upsample_adjoint", "conv_epilogue")
 
 # source name -> the thread building it in the background
 _BACKGROUND = {}

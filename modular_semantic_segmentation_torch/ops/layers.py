@@ -47,6 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from modular_semantic_segmentation_torch.ops import int8_conv
+from modular_semantic_segmentation_torch.ops.cuda import conv_epilogue
 from modular_semantic_segmentation_torch.ops.fast_upsample import (
     diagonal_upsample, same_transpose_crop)
 from modular_semantic_segmentation_torch.utils import tracing
@@ -233,6 +234,14 @@ def conv2d(ctx, x, filters, kernel_size, name, strides=1, dilation_rate=1,
     float32 by ``ascale * kscale`` before the bias. A conv whose key is
     not there stays on the float path, and so does every conv in train
     mode (``ctx.train``), as in the JAX package.
+
+    On the float path, where :func:`epilogue_chain_reason` finds nothing
+    against it, the bias, the rounding to bf16 and the ReLU run as one
+    kernel (``ops/cuda/conv_epilogue.py``) over the conv's fresh output,
+    in place, bit for bit the chain's values; while a profiler records,
+    such a conv adds one to the counter ``layers.epilogue_fused``, and a
+    float-path conv with a bias that keeps the chain one to
+    ``layers.epilogue_eager``.
     """
     kh, kw = _pair(kernel_size)
     sh, sw = _pair(strides)
@@ -240,6 +249,7 @@ def conv2d(ctx, x, filters, kernel_size, name, strides=1, dilation_rate=1,
     n, h, w, in_ch = x.shape
     dtype = ctx.compute_dtype
     tp = ctx.tensor_parallel
+    fused = False
     with ctx.scope(name):
         kernel = ctx.get("kernel")
         channel_shard = tp is not None and tp.is_sharded(
@@ -276,13 +286,54 @@ def conv2d(ctx, x, filters, kernel_size, name, strides=1, dilation_rate=1,
                 out = _conv(x.to(dtype), kernel.to(dtype), (sh, sw),
                             (dh, dw), ph, pw)
             if use_bias:
-                # float32 promotion, as jnp's bf16 + f32 in the JAX package
-                out = out + _channels(ctx, ctx.get("bias"), out.shape[-1])
-    # outside the conv's scope: batch_norm enters <name> itself
-    out = _epilogue(ctx, out, name, activation, batch_normalization)
+                bias = _channels(ctx, ctx.get("bias"), out.shape[-1])
+                fused = epilogue_chain_reason(
+                    out, bias, dtype, activation,
+                    batch_normalization) is None
+                if fused:
+                    tracing.count("layers.epilogue_fused")
+                    out = conv_epilogue.bias_act_(out, bias,
+                                                  activation is not None)
+                else:
+                    tracing.count("layers.epilogue_eager")
+                    # float32 promotion, as jnp's bf16 + f32 in the JAX
+                    # package
+                    out = out + bias
+    if not fused:
+        # outside the conv's scope: batch_norm enters <name> itself
+        out = _epilogue(ctx, out, name, activation, batch_normalization)
     if channel_shard:
         out = tp.gather(out)
     return out
+
+
+def epilogue_chain_reason(out, bias, compute_dtype, activation,
+                          batch_normalization):
+    """Why :func:`conv2d` keeps the chain ``out + bias`` (float32), cast,
+    [BN], activation for a float-path conv's output ``out`` and ``bias``,
+    or None where one pass of ``conv_epilogue.bias_act_`` gives the same
+    values: no batch norm, ReLU or no activation, a bf16 output and compute
+    dtype with a float32 bias, nothing for autograd to record, no program
+    being traced or compiled, and a contiguous output on a CUDA card.
+    Decided from the tensors, so every model and mode that meets the
+    conditions takes the kernel."""
+    if batch_normalization:
+        return "batch norm between the bias and the activation"
+    if activation is not None and activation is not torch.relu:
+        return "an activation other than torch.relu"
+    if (compute_dtype != torch.bfloat16 or out.dtype != torch.bfloat16
+            or bias.dtype != torch.float32):
+        return "not a bf16 output with a float32 bias"
+    if torch.is_grad_enabled() and (out.requires_grad
+                                    or bias.requires_grad):
+        return "autograd records the conv"
+    if torch.compiler.is_compiling():
+        return "a program being traced or compiled"
+    if not out.is_contiguous() or not bias.is_contiguous():
+        return "a non-contiguous output or bias"
+    if out.device.type != "cuda":
+        return "not on a CUDA card"
+    return None
 
 
 def _conv(x, kernel, strides, dilation, ph, pw):

@@ -36,6 +36,16 @@ adds one to the counter ``tracing.dropped``. The per-name totals that
 :func:`snapshot` returns stay exact. Records and totals are guarded by a
 lock: ``fit``'s prefetcher and the serving loop may trace from other
 threads.
+
+The port's counters: ``serve.*`` (``serving.py``), ``fit.steps``
+(``models/estimator.py``), ``upsample.forward`` and ``upsample.adjoint``
+(``ops/cuda/upsample.py``), and in ``ops/layers.py``
+``layers.kernel_cache_miss``, ``layers.epilogue_fused`` (a conv whose
+bias, rounding and ReLU ran as the epilogue kernel) and
+``layers.epilogue_eager`` (a float-path conv with a bias that kept the
+PyTorch chain); their ratio is the kernel's share of such convs. A
+replayed CUDA graph runs no Python, so the counters inside a model's
+forward count its eager calls only.
 """
 
 import collections

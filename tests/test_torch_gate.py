@@ -252,13 +252,13 @@ def test_every_kernel_source_is_built():
     the stem conv of the probe path among them, and each wrapper's
     library is one of them."""
     from modular_semantic_segmentation_torch.ops.cuda import (
-        build, confusion, dirichlet, stem_conv, upsample)
+        build, confusion, conv_epilogue, dirichlet, stem_conv, upsample)
     sources = sorted(name[:-3] for name in os.listdir(build.CSRC_DIR)
                      if name.endswith(".cu"))
     assert sorted(build.KERNEL_SOURCES) == sources
     assert "stem_conv" in sources
     for kernel in (confusion.KERNEL, dirichlet.KERNEL, stem_conv.KERNEL,
-                   upsample.KERNEL, upsample.ADJOINT):
+                   upsample.KERNEL, upsample.ADJOINT, conv_epilogue.KERNEL):
         assert kernel.source in sources
 
 

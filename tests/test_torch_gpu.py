@@ -1079,3 +1079,146 @@ def test_mc_dropout_fusion_is_served_eagerly_on_the_card(
     net._generator.set_state(state)
     np.testing.assert_array_equal(got,
                                   _eager_outputs(net, frames, "prediction"))
+
+
+# the epilogue kernel at the flagship's outputs ([N, H, W, C] of conv1_2,
+# conv2_2, conv3_3, conv4_3 and the decoder's score at 768x384), odd
+# widths (16-byte vectors across pixels, and a count that is no multiple
+# of 8) and a small tensor
+EPILOGUE_SHAPES = [(1, 768, 384, 64), (1, 384, 192, 128), (1, 192, 96, 256),
+                   (1, 96, 48, 512), (1, 768, 384, 14), (2, 4, 6, 7),
+                   (2, 17, 23, 7), (3, 5, 9, 24)]
+
+
+def _epilogue_inputs(shape, cuda, seed=0):
+    """bf16 x and float32 bias with NaN, +-0, infinities, a float32
+    subnormal bias (-0 in bf16) and sums on a tie between two bf16
+    values, among random values of both signs."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    c = shape[-1]
+    x = (torch.randn(shape, generator=gen, device=cuda) * 3).to(
+        torch.bfloat16)
+    bias = torch.randn(c, generator=gen, device=cuda) * 2
+    flat = x.view(-1)
+    flat[:5] = torch.tensor([float("nan"), -0.0, 0.0, float("inf"),
+                             -float("inf")], device=cuda)
+    flat[5 * c:6 * c] = 1.0
+    specials = [2.0 ** -8, 3 * 2.0 ** -8, -0.0, -1e-45, float("nan")]
+    bias[:len(specials)] = torch.tensor(specials[:c], device=cuda)
+    flat[7 * c + min(2, c - 1)] = -0.0
+    return x, bias
+
+
+def _assert_epilogue_equal(got, want):
+    """Bit for bit where the chain's value is a number (so +0 and -0 are
+    told apart), NaN where it is NaN."""
+    nan = torch.isnan(want.float())
+    assert torch.equal(torch.isnan(got.float()), nan)
+    assert torch.equal(got.view(torch.int16)[~nan],
+                       want.view(torch.int16)[~nan])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["aligned", "offset"])
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("shape", EPILOGUE_SHAPES)
+def test_conv_epilogue_kernel_equals_the_chain(cuda, shape, relu, layout):
+    """The epilogue kernel, in place, against the chain it replaces
+    (``x + bias`` in float32, the cast to bf16, ``torch.relu``) on the
+    card; offset: x starts one element past a 16-byte boundary, so the
+    kernel takes its one-value path, as it does where the count is no
+    multiple of 8."""
+    from modular_semantic_segmentation_torch.ops.cuda import conv_epilogue
+    x, bias = _epilogue_inputs(shape, cuda, seed=shape[-1])
+    want = conv_epilogue.bias_act_plain(x, bias, relu)
+    got = _off_alignment(x, 1 if layout == "offset" else 0)
+    before = conv_epilogue.KERNEL.launches
+    assert conv_epilogue.bias_act_(got, bias, relu) is got
+    torch.cuda.synchronize()
+    assert conv_epilogue.KERNEL.launches == before + 1
+    _assert_epilogue_equal(got, want)
+
+
+def _chain_kept(monkeypatch):
+    """``conv2d`` keeps the PyTorch chain at every conv."""
+    from modular_semantic_segmentation_torch.ops import layers
+    monkeypatch.setattr(layers, "epilogue_chain_reason",
+                        lambda *args: "kept for the comparison")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("unroll,in_flight,n", [(4, 2, 9), (1, 1, 3)])
+def test_graph_served_epilogue_equals_the_chain(
+        cuda, deterministic_cudnn, monkeypatch, unroll, in_flight, n):
+    """Labels and both experts' probabilities served from a captured graph
+    whose convolutions end in the epilogue kernel equal, bit for bit, an
+    eager forward that keeps the PyTorch chain."""
+    from modular_semantic_segmentation_torch.ops.cuda import conv_epilogue
+    from modular_semantic_segmentation_torch.serving import InferenceServer
+    net = _flagship(cuda)
+    frames = _distinct_frames(n, 768, 384, seed=10 + unroll)
+    served = {}
+    for attr in ("prediction", "rgb_prob", "depth_prob"):
+        before = conv_epilogue.KERNEL.launches
+        server = InferenceServer(net, unroll=unroll, max_in_flight=in_flight,
+                                 output_attr=attr)
+        served[attr] = server.predict(frames)
+        (entry,) = server._graphs.values()
+        assert entry.graph is not None
+        # the warm-up and the capture, 32 bias convs a frame each
+        assert conv_epilogue.KERNEL.launches - before == 2 * 32 * unroll
+    _chain_kept(monkeypatch)
+    before = conv_epilogue.KERNEL.launches
+    for attr, got in served.items():
+        np.testing.assert_array_equal(got, _eager_outputs(net, frames, attr))
+    assert conv_epilogue.KERNEL.launches == before
+
+
+@pytest.mark.gpu
+def test_eager_forward_counts_the_epilogue_kernel(cuda):
+    """An eager forward of the flagship fusion takes the kernel at all 32
+    bias convs a frame (16 an expert) and keeps the chain at none; a
+    train-mode step (batch norm, autograd) the opposite. A replayed group
+    runs the kernel 32 times a frame on the card (device trace)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from modular_semantic_segmentation_torch.models import get_model
+    from modular_semantic_segmentation_torch.serving import InferenceServer
+    from modular_semantic_segmentation_torch.utils import tracing
+    net = _flagship(cuda)
+    frames = _distinct_frames(2, 384, 192, seed=7)
+    tracing.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        for frame in frames:
+            net._forward(net._batch_to_device(
+                {k: np.stack([v]) for k, v in frame.items()}))
+        torch.cuda.synchronize()
+    counters = tracing.snapshot()["counters"]
+    assert counters.get("layers.epilogue_fused", 0) == 32 * len(frames)
+    assert counters.get("layers.epilogue_eager", 0) == 0
+    server = InferenceServer(net, unroll=2)
+    server.predict(frames)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        server.predict(frames)
+        torch.cuda.synchronize()
+    runs = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and "conv_epilogue_kernel" in e.name]
+    assert len(runs) == 32 * len(frames)
+    rng = np.random.RandomState(3)
+    trainer = get_model("simple_fcn")(
+        prefix="rgb", modality="rgb",
+        data_description=({"labels": np.int32, "rgb": np.float32},
+                          {"rgb": (None, None, 3), "labels": (None, None)},
+                          6),
+        num_units=8, channel_factor=0.25, batchsize=2,
+        compute_dtype="bfloat16", device=cuda)
+    data = {"rgb": (rng.rand(2, 64, 32, 3) * 255).astype(np.float32),
+            "labels": rng.randint(-1, 6, (2, 64, 32)).astype(np.int32)}
+    tracing.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        trainer.fit(data, 1, output=False)
+        torch.cuda.synchronize()
+    counters = tracing.snapshot()["counters"]
+    assert counters.get("layers.epilogue_fused", 0) == 0
+    assert counters["layers.epilogue_eager"] == 16
