@@ -48,18 +48,21 @@ class BayesFusion(FusionModel):
                              **standard_config)
 
     def _device_tables(self, device):
-        """Fusion tables on ``device``, built on first use."""
+        """Fusion tables on ``device``, built on first use; those a traced
+        program builds (``serving.export_serving``) stay in the program."""
         key = str(device)
-        if key not in self._tables:
+        tables = (dict(self._tables) if torch.compiler.is_compiling()
+                  else self._tables)
+        if key not in tables:
             matrices = [self.confusion_matrices[m] for m in self.modalities]
             if self.config.get("use_decision_matrix"):
-                self._tables[key] = torch.from_numpy(
+                tables[key] = torch.from_numpy(
                     fm.bayes_decision_matrix(
                         matrices, self.config["class_prior"])).to(device)
             else:
-                self._tables[key] = fm.bayes_tables(
+                tables[key] = fm.bayes_tables(
                     matrices, self.config["class_prior"], device=device)
-        return self._tables[key]
+        return tables[key]
 
     def _fusion(self, expert_outputs):
         classifications = [expert_outputs[m]["classification"]

@@ -99,15 +99,19 @@ class DirichletFusion(FusionModel):
         return fm.class_prior(self.config["class_prior"], data_prior)
 
     def _kernel_tables(self, num_classes):
-        """(coeffs, bias) of the kernel, built on first use. They stay on
-        the host on every device: the kernel takes them by value."""
-        if num_classes not in self._tables:
+        """(coeffs, bias) of the kernel, built on first use; those a traced
+        program builds (``serving.export_serving``) stay in the program.
+        They stay on the host on every device: the kernel takes them by
+        value."""
+        tables = (dict(self._tables) if torch.compiler.is_compiling()
+                  else self._tables)
+        if num_classes not in tables:
             coeffs, bias = dirichlet.dirichlet_tables(
                 [self.dirichlet_params[m] for m in self.modalities],
                 self._prior(), self.config["sigma"], num_classes)
-            self._tables[num_classes] = (torch.from_numpy(coeffs),
-                                         torch.from_numpy(bias))
-        return self._tables[num_classes]
+            tables[num_classes] = (torch.from_numpy(coeffs),
+                                   torch.from_numpy(bias))
+        return tables[num_classes]
 
     def _fusion(self, expert_outputs):
         # normalize probs defensively, as the reference does

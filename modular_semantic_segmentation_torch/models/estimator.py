@@ -18,9 +18,8 @@ layers (MC dropout); it advances with every draw, as the JAX package's key
 is split per step. PyTorch runs eagerly, so there is no jitted step: the
 eval step is a plain call under ``torch.inference_mode``, and the train
 step is a pure function of (variables, optimizer state, batch) that
-returns new tensors, as JAX's: no variable is changed in place, so what a
-layer keeps in ``_kernel_cache`` beside a kernel (its int8 form) is never
-taken for a trained kernel.
+returns new tensors, as JAX's: no variable is changed in place
+(``_kernel_cache``, an ``ops.layers.KernelCache``, relies on it).
 
 Subclass contract:
     _variable_specs() -> [(name, shape, initializer, trainable), ...]
@@ -55,7 +54,8 @@ from modular_semantic_segmentation_torch.ops import metrics as metrics_lib
 from modular_semantic_segmentation_torch.ops import optimizers
 from modular_semantic_segmentation_torch.ops.init import (
     build_variables, trainable_map)
-from modular_semantic_segmentation_torch.ops.layers import configure_float32
+from modular_semantic_segmentation_torch.ops.layers import (
+    KernelCache, configure_float32)
 from modular_semantic_segmentation_torch.ops.losses import one_hot
 from modular_semantic_segmentation_torch.ops.variables import (
     Ctx, resolve_device, resolve_dtype, split_trainable)
@@ -144,7 +144,7 @@ class Estimator:
         self.compute_dtype = resolve_dtype(compute_dtype)
         self.device = resolve_device(device)
         self.global_step = 0
-        self._kernel_cache = {}
+        self._kernel_cache = KernelCache()
         # the parallel layer's distribution over a mesh (parallel/); None
         # on one device
         self._parallel = None

@@ -192,28 +192,80 @@ def _calibrate(ctx, x, quant_key):
     ctx.amax[ctx.full_name("input_pixels")] = float(x.shape[1] * x.shape[2])
 
 
-def _int8_operands(ctx, kernel, act_scale):
-    """(int8 kernel as [out, kh*kw*in], the float32 activation scale on the
-    kernel's device, the float32 dequantization ``ascale * kscale`` per
-    output channel), kept in ``ctx.kernel_cache`` beside the kernel and
-    the scale they were made from: the serving loop makes them once, and
-    no frame copies a scale to the card (a copy from pageable host memory
-    would wait for the stream). While a profiler records, a miss adds one
-    to the counter ``layers.kernel_cache_miss`` (``utils/tracing.py``)."""
-    key = ctx.full_name("kernel") + ":int8"
-    cached = ctx.kernel_cache.get(key)
-    if (cached is not None and cached[0] is kernel
-            and cached[1] == act_scale):
-        return cached[2]
-    tracing.count("layers.kernel_cache_miss")
-    kq, kscale = int8_conv.quantize_kernel(kernel)
-    # the float32 of the stored Python float, as jnp.float32 gives it
-    ascale = torch.full((1,), act_scale, dtype=torch.float32,
-                        device=kernel.device)
-    value = (kq.reshape(-1, kq.shape[-1]).t().contiguous(), ascale,
-             ascale * kscale)
-    ctx.kernel_cache[key] = (kernel, act_scale, value)
-    return value
+class KernelCache:
+    """What the layers derive from a kernel, kept for the next call: whether
+    a frozen deconv kernel is channel-diagonal, and a conv's int8 operands.
+    An entry is valid while its kernel is the same tensor object (and the
+    activation scale the same): no layer changes a variable in place. A
+    miss waits for the device, and counts in ``layers.kernel_cache_miss``
+    while a profiler records. ``Estimator._kernel_cache`` keeps one across
+    calls; a captured CUDA graph keeps what it :meth:`held`
+    (``serving.InferenceServer``)."""
+
+    def __init__(self):
+        self._entries = {}
+        self._decided = {}
+
+    @classmethod
+    def decided(cls, variables):
+        """A cache for a program traced by ``torch.export``, which cannot
+        read its weights: whether each [k, k, C, C] variable is
+        channel-diagonal is decided now, by name. The int8 operands are
+        derived in the program, from its weights input."""
+        cache = cls()
+        cache._decided = {
+            name: cls._diagonal(value) for name, value in variables.items()
+            if value.ndim == 4 and value.shape[0] == value.shape[1]
+            and value.shape[2] == value.shape[3]}
+        return cache
+
+    def _derive(self, form, name, kernel, args, make):
+        entry = self._entries.get((form, name))
+        if entry is not None and entry[0] is kernel and entry[1] == args:
+            return entry[2]
+        tracing.count("layers.kernel_cache_miss")
+        value = make(kernel, *args)
+        self._entries[(form, name)] = (kernel, args, value)
+        return value
+
+    def channel_diagonal(self, name, kernel):
+        """True when the [k, k, C, C] ``kernel`` has no off-diagonal
+        weight."""
+        if name in self._decided:
+            return self._decided[name]
+        return self._derive("diagonal", name, kernel, (), self._diagonal)
+
+    def int8_operands(self, name, kernel, act_scale):
+        """(int8 kernel as [out, kh*kw*in], the float32 activation scale
+        on the kernel's device, the float32 dequantization ``ascale *
+        kscale`` per output channel)."""
+        return self._derive("int8", name, kernel, (act_scale,),
+                            self._quantize)
+
+    def quantized(self):
+        """``{kernel name: int8 operands}`` of the entries held."""
+        return {name: value for (form, name), (_, _, value)
+                in self._entries.items() if form == "int8"}
+
+    def held(self):
+        """What the entries reference: kernels, scales, derived values."""
+        return tuple(self._entries.values())
+
+    @staticmethod
+    def _diagonal(kernel):
+        idx = torch.arange(kernel.shape[2], device=kernel.device)
+        off = kernel.clone()
+        off[:, :, idx, idx] = 0.0
+        return not bool(off.any())
+
+    @staticmethod
+    def _quantize(kernel, act_scale):
+        kq, kscale = int8_conv.quantize_kernel(kernel)
+        # the float32 of the stored Python float, as jnp.float32 gives it
+        ascale = torch.full((1,), act_scale, dtype=torch.float32,
+                            device=kernel.device)
+        return (kq.reshape(-1, kq.shape[-1]).t().contiguous(), ascale,
+                ascale * kscale)
 
 
 def conv2d(ctx, x, filters, kernel_size, name, strides=1, dilation_rate=1,
@@ -268,8 +320,8 @@ def conv2d(ctx, x, filters, kernel_size, name, strides=1, dilation_rate=1,
                 and ctx.act_scales is not None
                 and quant_key in ctx.act_scales
                 and ctx.spatial_axis is None):
-            kq_t, ascale, dequant = _int8_operands(
-                ctx, kernel, ctx.act_scales[quant_key])
+            kq_t, ascale, dequant = ctx.kernel_cache.int8_operands(
+                ctx.full_name("kernel"), kernel, ctx.act_scales[quant_key])
             acc = int8_conv.int8_conv2d(
                 int8_conv.quantize(x, ascale), kq_t, (kh, kw), (sh, sw),
                 (dh, dw), (ph, pw))
@@ -384,29 +436,6 @@ def _spatial_conv(axis, x, kernel, kernel_size, strides, dilation, pw):
     return out[:, axis.index * rows:(axis.index + 1) * rows]
 
 
-def _channel_diagonal(ctx, kernel):
-    """True when the [k, k, C, C] kernel has no off-diagonal weight.
-
-    The answer is kept in ``ctx.kernel_cache`` beside the kernel it was
-    computed for, so a frame served with the same kernel does not wait for
-    the device to check again; a miss, which blocks the host on the
-    device, counts in ``layers.kernel_cache_miss`` while a profiler
-    records."""
-    key = ctx.full_name("kernel")
-    if key in ctx.channel_diagonal:
-        return ctx.channel_diagonal[key]
-    cached = ctx.kernel_cache.get(key)
-    if cached is not None and cached[0] is kernel:
-        return cached[1]
-    tracing.count("layers.kernel_cache_miss")
-    idx = torch.arange(kernel.shape[2], device=kernel.device)
-    off = kernel.clone()
-    off[:, :, idx, idx] = 0.0
-    diagonal = not bool(off.any())
-    ctx.kernel_cache[key] = (kernel, diagonal)
-    return diagonal
-
-
 def deconv2d(ctx, x, filters, kernel_size, name, strides=1, activation=None,
              use_bias=False, trainable=False, batch_normalization=True):
     """Transposed convolution with a kernel [H, W, out, in].
@@ -452,7 +481,8 @@ def deconv2d(ctx, x, filters, kernel_size, name, strides=1, activation=None,
         _check_shape(kernel, (kh, kw, int(filters), in_ch),
                      ctx.full_name("kernel"))
         if (not trainable and int(filters) == in_ch and kh == kw
-                and sh == sw and _channel_diagonal(ctx, kernel)):
+                and sh == sw and ctx.kernel_cache.channel_diagonal(
+                    ctx.full_name("kernel"), kernel)):
             idx = torch.arange(in_ch, device=kernel.device)
             diag = kernel[:, :, idx, idx]
             out = diagonal_upsample(x.to(dtype), diag.to(dtype), sh)

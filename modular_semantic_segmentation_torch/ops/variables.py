@@ -26,6 +26,8 @@ from contextlib import contextmanager
 
 import torch
 
+from modular_semantic_segmentation_torch.ops.layers import KernelCache
+
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 #: ``Ctx(generator=DEFAULT_GENERATOR)``: stochastic layers draw from the
@@ -60,11 +62,8 @@ class Ctx:
         variables: flat dict TF name -> tensor.
         compute_dtype: torch dtype inside convolutions; variables stay
             float32.
-        kernel_cache: dict the caller keeps across calls, in which layers
-            keep what they derive from a kernel beside the kernel:
-            ``deconv2d`` whether it is channel-diagonal (so the check does
-            not wait for the device on every frame), the int8 ``conv2d``
-            its quantized form.
+        kernel_cache: ``ops.layers.KernelCache`` kept across calls; None
+            = a fresh one.
         generator: ``torch.Generator`` on the device of the variables,
             the random stream that stochastic layers (MC dropout) draw
             from; :data:`DEFAULT_GENERATOR` for the device's default
@@ -82,10 +81,6 @@ class Ctx:
         train: training mode: batch norm uses batch statistics and
             records moving-statistic updates in ``self.updates``; convs
             never take the int8 path.
-        channel_diagonal: dict ``<scope>/kernel`` -> bool, whether a
-            frozen deconv kernel is channel-diagonal, decided before the
-            computation: a program traced by ``torch.export`` cannot ask
-            its weights (``serving.export_serving``).
         spatial_axis: ``parallel.mesh.Axis`` the height is sharded over;
             convs and deconvs exchange row halos with the neighbouring
             shards, and neither takes the int8 path.
@@ -97,17 +92,16 @@ class Ctx:
     def __init__(self, variables, compute_dtype=torch.float32,
                  kernel_cache=None, generator=None, act_scales=None,
                  calibrate=False, calibrate_percentile=100.0, train=False,
-                 channel_diagonal=None, spatial_axis=None, data_axis=None,
-                 tensor_parallel=None):
+                 spatial_axis=None, data_axis=None, tensor_parallel=None):
         self.variables = variables
         self.train = train
-        self.channel_diagonal = channel_diagonal or {}
         self.spatial_axis = spatial_axis
         self.data_axis = data_axis
         self.tensor_parallel = tensor_parallel
         self.updates = {}
         self.compute_dtype = compute_dtype
-        self.kernel_cache = {} if kernel_cache is None else kernel_cache
+        self.kernel_cache = (KernelCache() if kernel_cache is None
+                             else kernel_cache)
         self._generator = generator
         self.act_scales = act_scales
         self.calibrate = calibrate

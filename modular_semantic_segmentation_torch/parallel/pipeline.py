@@ -129,22 +129,23 @@ def fcn_inference_pipeline(estimator, devices=None):
         target = (decoder_vars if name.startswith(decoder_scopes)
                   else encoder_vars)
         target[name] = value
-    caches = ({}, {})
+    # one cache serves both stages: their scope names differ
+    cache = ll.KernelCache()
 
-    def context(variables, cache):
+    def context(variables):
         return Ctx(variables, compute_dtype=estimator.compute_dtype,
                    kernel_cache=cache, act_scales=estimator.act_scales)
 
     def encoder_stage(variables, batch):
         inputs = estimator._preprocess(batch)[modality]
-        return encoder(context(variables, caches[0]), inputs, prefix,
+        return encoder(context(variables), inputs, prefix,
                        config["num_units"],
                        batchnorm=config["batch_normalization"],
                        channel_factor=config.get("channel_factor", 1.0)
                        )["fused"]
 
     def decoder_stage(variables, features):
-        score = decoder(context(variables, caches[1]), features, prefix,
+        score = decoder(context(variables), features, prefix,
                         config["num_units"], config["num_classes"],
                         batchnorm=config["batch_normalization"])["score"]
         return ll.softmax(score).argmax(-1).to(torch.int32)

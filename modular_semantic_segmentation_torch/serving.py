@@ -12,20 +12,19 @@ program, so the host launches one graph a group where the eager program
 launches hundreds of kernels (334 a fused VGG16-FCN frame). The first
 group of each key (group size, each input's shape and dtype,
 ``output_attr`` and the serving mode) runs eagerly on a side stream,
-which fills the caches that block the host (``ops/layers``' kernel cache:
-whether a frozen deconv is channel-diagonal, the int8 kernels); the
-second is captured with ``torch.cuda.CUDAGraph`` and replayed, as is
-every later one. A graph replays the weights it captured: when any object
-of the model's ``_serving_state`` (its variables; DirichletFusion's kernel
+which fills the model's ``ops.layers.KernelCache``; the second is
+captured with ``torch.cuda.CUDAGraph`` and replayed, as is every later
+one. A graph replays the weights it captured: when any object of the
+model's ``_serving_state`` (its variables; DirichletFusion's kernel
 tables too) is no longer the one captured, the key is warmed and captured
-anew. The graph also keeps the entries of the model's kernel cache that
-it read (the int8 kernels and scales), which a forward at other scales
-replaces there. A group's frames are written into pinned staging buffers,
-one set for each of the ``max_in_flight`` slots, a set rewritten only
-once the group that last read it has completed; they go up to the
-graph's static inputs on the current stream before the replay, and the
-static outputs come back into fresh pinned buffers behind the group's
-CUDA event, before the next replay on the stream can overwrite them.
+anew. The graph also keeps what the cache held at its capture, which a
+forward at other scales replaces there. A group's frames are written into
+pinned staging buffers, one set for each of the ``max_in_flight`` slots,
+a set rewritten only once the group that last read it has completed; they
+go up to the graph's static inputs on the current stream before the
+replay, and the static outputs come back into fresh pinned buffers behind
+the group's CUDA event, before the next replay on the stream can
+overwrite them.
 
 Families served from graphs: SimpleFCN, Adapnet, FusionFCN,
 ProgressiveFCN, BayesFusion, AverageFusion, DirichletFusion with
@@ -68,6 +67,7 @@ from functools import partial
 import numpy as np
 import torch
 
+from modular_semantic_segmentation_torch.ops.layers import KernelCache
 from modular_semantic_segmentation_torch.ops.variables import (
     DEFAULT_GENERATOR, Ctx, resolve_device)
 from modular_semantic_segmentation_torch.utils import tracing
@@ -378,7 +378,7 @@ class InferenceServer:
                 # a graph holds no reference to tensors made outside its
                 # pool: keep the cached int8 operands it read alive, which
                 # a forward at other scales replaces in the cache
-                entry.pinned = tuple(self._net._kernel_cache.values())
+                entry.pinned = self._net._kernel_cache.held()
                 tracing.count("serve.graph_captures")
             backend.replay(entry.graph)
             tracing.count("serve.graph_replays")
@@ -437,39 +437,21 @@ META = "meta.json"
 class _ServingProgram(torch.nn.Module):
     """The forward that ``export_serving`` traces: (variables, batch) ->
     the test output ``output_attr``, in the estimator's serving mode, with
-    dropout drawing from the device's default generator."""
+    dropout drawing from the device's default generator and a
+    ``KernelCache.decided`` from the estimator's weights."""
 
-    def __init__(self, net, output_attr, channel_diagonal):
+    def __init__(self, net, output_attr):
         super().__init__()
         self._net = net
         self._attr = output_attr
-        self._channel_diagonal = channel_diagonal
+        self._kernel_cache = KernelCache.decided(net.variables)
 
     def forward(self, variables, batch):
         net = self._net
         ctx = Ctx(variables, compute_dtype=net.compute_dtype,
-                  generator=DEFAULT_GENERATOR, act_scales=net.act_scales,
-                  channel_diagonal=self._channel_diagonal)
+                  kernel_cache=self._kernel_cache,
+                  generator=DEFAULT_GENERATOR, act_scales=net.act_scales)
         return net._test_outputs(ctx, net._preprocess(batch))[self._attr]
-
-
-def _channel_diagonal(net, batch):
-    """Whether each frozen deconv kernel of ``net`` is channel-diagonal,
-    asked of the weights by one eager forward (``Ctx.channel_diagonal``:
-    the traced program cannot ask)."""
-    cache = {}
-    with torch.inference_mode():
-        ctx = Ctx(net.variables, compute_dtype=net.compute_dtype,
-                  kernel_cache=cache, generator=DEFAULT_GENERATOR,
-                  act_scales=net.act_scales)
-        with torch.random.fork_rng(devices=_rng_devices(net.device)):
-            net._test_outputs(ctx, net._preprocess(batch))
-    return {key: entry[1] for key, entry in cache.items()
-            if isinstance(entry[1], bool)}
-
-
-def _rng_devices(device):
-    return [device] if device.type == "cuda" else []
 
 
 def export_serving(estimator, directory, example_batch,
@@ -509,8 +491,7 @@ def export_serving(estimator, directory, example_batch,
         raise ValueError(f"the program of a model on {net.device} runs on "
                          f"{net.device.type}, not {platform}")
     batch = net._batch_to_device(example_batch)
-    program = _ServingProgram(net, output_attr,
-                              _channel_diagonal(net, batch))
+    program = _ServingProgram(net, output_attr)
     with torch.no_grad():
         exported = torch.export.export(program, (dict(net.variables),
                                                  batch))
@@ -568,8 +549,9 @@ class ExportedServing:
         inputs = {k: torch.from_numpy(np.ascontiguousarray(v)).to(
             self.device) for k, v in batch.items()}
         seed = int(self._seeds.integers(2**63 - 1))
-        with torch.random.fork_rng(devices=_rng_devices(self.device)):
-            if self.device.type == "cuda":
+        cuda = self.device.type == "cuda"
+        with torch.random.fork_rng(devices=[self.device] if cuda else []):
+            if cuda:
                 torch.cuda.manual_seed(seed)
             else:
                 torch.manual_seed(seed)

@@ -40,8 +40,8 @@ threads.
 The port's counters: ``serve.*`` (``serving.py``), ``fit.steps``
 (``models/estimator.py``), ``upsample.forward`` and ``upsample.adjoint``
 (``ops/cuda/upsample.py``), and in ``ops/layers.py``
-``layers.kernel_cache_miss``, ``layers.epilogue_fused`` (a conv whose
-bias, rounding and ReLU ran as the epilogue kernel) and
+``layers.kernel_cache_miss`` (``KernelCache``), ``layers.epilogue_fused``
+(a conv whose bias, rounding and ReLU ran as the epilogue kernel) and
 ``layers.epilogue_eager`` (a float-path conv with a bias that kept the
 PyTorch chain); their ratio is the kernel's share of such convs. A
 replayed CUDA graph runs no Python, so the counters inside a model's

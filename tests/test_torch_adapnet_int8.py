@@ -214,6 +214,5 @@ def test_adapnet_int8_dirichlet_labels_match_jax(small):
 def test_adapnet_int8_runs_the_int8_convs(small, name):
     """The served fusions went through the int8 product, for each
     expert's block_0_2 alone."""
-    cached = sorted(k for k in small["nets"][name]._kernel_cache
-                    if k.endswith(":int8"))
-    assert cached == [f"{m}/block_0_2/kernel:int8" for m in ("depth", "rgb")]
+    cached = sorted(small["nets"][name]._kernel_cache.quantized())
+    assert cached == [f"{m}/block_0_2/kernel" for m in ("depth", "rgb")]

@@ -179,17 +179,50 @@ def test_export_serving_packed_fusion_roundtrip(tmp_path):
         full))
 
 
+def test_export_serving_keeps_a_dense_frozen_deconv(tmp_path):
+    """A frozen ``upscore`` kernel with an off-diagonal weight is no
+    channel-diagonal upsample: the program, whose answers come from the
+    weights at export, takes the dense ``conv_transpose2d`` for it, as
+    eager ``predict`` does, and gives ``predict``'s rgb probabilities."""
+    rng = np.random.RandomState(0)
+    k = 4
+    cms = {m: rng.rand(k, k) + np.eye(k) * 5 for m in ("rgb", "depth")}
+    _, net, full = _fusion("bayes_mix", confusion_matrices=cms)
+
+    def upsamples(directory):
+        art = export_serving(net, str(tmp_path / directory), full,
+                             output_attr="rgb_prob")
+        program = torch.export.load(os.path.join(art, "program.pt2"))
+        targets = [str(node.target) for node in program.graph.nodes]
+        return art, targets.count("msstorch.diagonal_upsample.default")
+
+    _, diagonal = upsamples("diagonal")
+    before = net.predict(full, output_attr="rgb_prob")
+    name = "rgb/upscore/kernel"
+    kernel = net.variables[name].clone()
+    kernel[3, 5, 0, 1] = 0.5
+    net.variables[name] = kernel
+    want = net.predict(full, output_attr="rgb_prob")
+    assert not np.array_equal(want, before)
+    art, dense = upsamples("dense")
+    assert dense == diagonal - 1
+    np.testing.assert_array_equal(ExportedServing(art).predict(full), want)
+
+
 def test_export_serving_dirichlet_kernel_operator(tmp_path):
     """``DirichletFusion(use_pallas=True)``: kernel B is in the program as
     the registered operator ``msstorch::dirichlet_label`` (its plain
-    version on the CPU), and the artifact gives ``predict``'s labels."""
+    version on the CPU), and the artifact gives ``predict``'s labels.
+    Exported before the model has served, the program builds the
+    kernel's tables itself and leaves the model's to its first
+    ``predict``."""
     rng = np.random.RandomState(1)
     params = {m: rng.rand(4, 4) * 3 + 1 for m in ("rgb", "depth")}
     params["class_counts"] = rng.rand(4) + 1
     _, net, full = _fusion("dirichlet_fusion", use_pallas=True,
                            dirichlet_params=params)
-    want = net.predict(full)
     art = export_serving(net, str(tmp_path / "dirichlet"), full)
+    want = net.predict(full)
     program = torch.export.load(os.path.join(art, "program.pt2"))
     targets = {str(node.target) for node in program.graph.nodes}
     assert "msstorch.dirichlet_label.default" in targets

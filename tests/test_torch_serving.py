@@ -372,14 +372,14 @@ def test_a_graph_keeps_the_int8_operands_it_captured(stand_in):
     server = InferenceServer(net, unroll=2)
     np.testing.assert_array_equal(server.predict(frames), want)
     assert stand_in.captures == 1
-    captured = {k: v for k, v in net._kernel_cache.items()
-                if k.endswith(":int8")}
+    captured = net._kernel_cache.quantized()
     assert len(captured) == len(scales)
-    operands = [weakref.ref(t) for _, _, value in captured.values()
+    operands = [weakref.ref(t) for value in captured.values()
                 for t in value]
     net.quantize_for_serving({k: 4.0 * v for k, v in scales.items()})
     _one_by_one(net, frames)
-    assert all(net._kernel_cache[k] is not v for k, v in captured.items())
+    replaced = net._kernel_cache.quantized()
+    assert all(replaced[k] is not v for k, v in captured.items())
     del captured
     gc.collect()
     assert all(ref() is not None for ref in operands)
