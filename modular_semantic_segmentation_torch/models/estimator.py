@@ -355,7 +355,8 @@ class Estimator:
     def _serving_state(self):
         """The objects the served forward reads besides its inputs and the
         serving mode: ``serving.InferenceServer`` replays a captured CUDA
-        graph only while each is, by identity, the one it captured."""
+        graph only while each is, by identity, the one it captured, and
+        each tensor has not been written in place since."""
         return tuple(self.variables.values())
 
     def _eager_serving_reason(self):

@@ -25,9 +25,14 @@ Counterpart of the JAX package's ``ops/layers.py``:
 Tensors are NHWC at every function here. A convolution sees the
 ``permute(0, 3, 1, 2)`` view: an NCHW tensor in channels-last memory, which
 cuDNN and the CPU kernels take without a copy. Kernels are stored HWIO
-(the npz contract) and permuted to PyTorch's [out, in, kh, kw] per call.
-The plain large convolutions stay ``torch.nn.functional`` calls, as the
-JAX package leaves them to XLA.
+(the npz contract). Where autograd records nothing and no program is
+traced (:func:`_weight_from_cache`), a conv reads its kernel from the
+``KernelCache``, cast to the compute dtype once and laid out as PyTorch's
+[out, in, kh, kw] in channels-last memory, which cuDNN takes as it is; a
+frozen channel-diagonal deconv reads its diagonal there in the same way.
+Otherwise both derive their weight for the call alone, which autograd
+follows. The plain large convolutions stay
+``torch.nn.functional`` calls, as the JAX package leaves them to XLA.
 
 Under the parallel layer (``parallel/``) the context's axes change three
 things, as in the JAX package: with ``ctx.spatial_axis`` convs and deconvs
@@ -194,13 +199,15 @@ def _calibrate(ctx, x, quant_key):
 
 class KernelCache:
     """What the layers derive from a kernel, kept for the next call: whether
-    a frozen deconv kernel is channel-diagonal, and a conv's int8 operands.
-    An entry is valid while its kernel is the same tensor object (and the
-    activation scale the same): no layer changes a variable in place. A
-    miss waits for the device, and counts in ``layers.kernel_cache_miss``
-    while a profiler records. ``Estimator._kernel_cache`` keeps one across
-    calls; a captured CUDA graph keeps what it :meth:`held`
-    (``serving.InferenceServer``)."""
+    a frozen deconv kernel is channel-diagonal, a conv's int8 operands, a
+    conv's kernel in the compute dtype and cuDNN's layout, and a frozen
+    deconv's diagonal in the compute dtype. An entry is valid while its
+    kernel is the same tensor object at the same :meth:`version`, which an
+    in-place write moves, and the activation scale or dtype is the same. A
+    miss counts in ``layers.kernel_cache_miss`` while a profiler records;
+    the channel-diagonal answer's waits for the device.
+    ``Estimator._kernel_cache`` keeps one across calls; a captured CUDA
+    graph keeps what it :meth:`held` (``serving.InferenceServer``)."""
 
     def __init__(self):
         self._entries = {}
@@ -219,13 +226,23 @@ class KernelCache:
             and value.shape[2] == value.shape[3]}
         return cache
 
+    @staticmethod
+    def version(tensor):
+        """The tensor's version counter, which an in-place write moves;
+        None for an inference tensor, which keeps none, and while a
+        program is traced, whose tensors are fakes."""
+        if tensor.is_inference() or torch.compiler.is_compiling():
+            return None
+        return tensor._version
+
     def _derive(self, form, name, kernel, args, make):
+        key = (self.version(kernel),) + args
         entry = self._entries.get((form, name))
-        if entry is not None and entry[0] is kernel and entry[1] == args:
+        if entry is not None and entry[0] is kernel and entry[1] == key:
             return entry[2]
         tracing.count("layers.kernel_cache_miss")
         value = make(kernel, *args)
-        self._entries[(form, name)] = (kernel, args, value)
+        self._entries[(form, name)] = (kernel, key, value)
         return value
 
     def channel_diagonal(self, name, kernel):
@@ -241,6 +258,33 @@ class KernelCache:
         kscale`` per output channel)."""
         return self._derive("int8", name, kernel, (act_scale,),
                             self._quantize)
+
+    def conv_weight(self, name, kernel, dtype, x):
+        """The HWIO ``kernel`` as ``F.conv2d``'s [out, in, kh, kw] weight in
+        ``dtype`` for a conv over ``x``. The entry, where
+        :func:`_weight_from_cache` allows it, is in channels-last memory
+        (the [out, kh, kw, in] order), which cuDNN takes for a
+        channels-last input without a copy. Otherwise the weight is the
+        permuted view of the cast kernel, which the conv copies for itself:
+        so autograd saves no copy of a float32 kernel, which the cast
+        returns as it is. While a profiler records, it adds one to
+        ``layers.weight_cached`` where it reads the entry, else one to
+        ``layers.weight_per_call``."""
+        if not _weight_from_cache(x, kernel):
+            tracing.count("layers.weight_per_call")
+            return kernel.to(dtype).permute(3, 2, 0, 1)
+        tracing.count("layers.weight_cached")
+        return self._derive("weight", name, kernel, (dtype,),
+                            self._conv_weight)
+
+    def diagonal_weight(self, name, kernel, dtype, x):
+        """The diagonal [k, k, C] of the [k, k, C, C] ``kernel`` in
+        ``dtype``: the upsample weights of a channel-diagonal deconv over
+        ``x``, the entry where :func:`_weight_from_cache` allows it."""
+        if not _weight_from_cache(x, kernel):
+            return self._diagonal_weight(kernel, dtype)
+        return self._derive("diagonal_weight", name, kernel, (dtype,),
+                            self._diagonal_weight)
 
     def quantized(self):
         """``{kernel name: int8 operands}`` of the entries held."""
@@ -259,6 +303,16 @@ class KernelCache:
         return not bool(off.any())
 
     @staticmethod
+    def _conv_weight(kernel, dtype):
+        return kernel.to(dtype).permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+
+    @staticmethod
+    def _diagonal_weight(kernel, dtype):
+        idx = torch.arange(kernel.shape[2], device=kernel.device)
+        return kernel[:, :, idx, idx].to(dtype)
+
+    @staticmethod
     def _quantize(kernel, act_scale):
         kq, kscale = int8_conv.quantize_kernel(kernel)
         # the float32 of the stored Python float, as jnp.float32 gives it
@@ -266,6 +320,19 @@ class KernelCache:
                             device=kernel.device)
         return (kq.reshape(-1, kq.shape[-1]).t().contiguous(), ascale,
                 ascale * kscale)
+
+
+def _weight_from_cache(x, kernel):
+    """Whether a conv or deconv over ``x`` reads its kernel's derived weight
+    from the context's ``KernelCache``: where autograd records nothing (a
+    train step makes new trainable leaves every step, and an inference-mode
+    tensor cannot be saved for backward) and no program is traced or
+    compiled (nothing built as a fake tensor may stay in the cache).
+    Decided from the tensors, so every model and mode that meets the
+    conditions reads the cache."""
+    if torch.is_grad_enabled() and (x.requires_grad or kernel.requires_grad):
+        return False
+    return not torch.compiler.is_compiling()
 
 
 def conv2d(ctx, x, filters, kernel_size, name, strides=1, dilation_rate=1,
@@ -287,11 +354,16 @@ def conv2d(ctx, x, filters, kernel_size, name, strides=1, dilation_rate=1,
     not there stays on the float path, and so does every conv in train
     mode (``ctx.train``), as in the JAX package.
 
-    On the float path, where :func:`epilogue_chain_reason` finds nothing
-    against it, the bias, the rounding to bf16 and the ReLU run as one
-    kernel (``ops/cuda/conv_epilogue.py``) over the conv's fresh output,
-    in place, bit for bit the chain's values; while a profiler records,
-    such a conv adds one to the counter ``layers.epilogue_fused``, and a
+    On the float path the kernel comes in the compute dtype and cuDNN's
+    layout from :meth:`KernelCache.conv_weight`, which reads its entry
+    where :func:`_weight_from_cache` allows it and else makes it for this
+    call, and counts which in ``layers.weight_cached`` and
+    ``layers.weight_per_call``.
+    Where :func:`epilogue_chain_reason` finds nothing against it, the
+    bias, the rounding to bf16 and the ReLU run as one kernel
+    (``ops/cuda/conv_epilogue.py``) over the conv's fresh output, in
+    place, bit for bit the chain's values; while a profiler records, such
+    a conv adds one to the counter ``layers.epilogue_fused``, and a
     float-path conv with a bias that keeps the chain one to
     ``layers.epilogue_eager``.
     """
@@ -330,13 +402,14 @@ def conv2d(ctx, x, filters, kernel_size, name, strides=1, dilation_rate=1,
             if use_bias:
                 out.add_(_channels(ctx, ctx.get("bias"), out.shape[-1]))
         else:
+            weight = ctx.kernel_cache.conv_weight(ctx.full_name("kernel"),
+                                                  kernel, dtype, x)
             if ctx.spatial_axis is not None and kh > 1:
-                out = _spatial_conv(ctx.spatial_axis, x.to(dtype),
-                                    kernel.to(dtype), (kh, kw), (sh, sw),
-                                    (dh, dw), pw)
+                out = _spatial_conv(ctx.spatial_axis, x.to(dtype), weight,
+                                    (kh, kw), (sh, sw), (dh, dw), pw)
             else:
-                out = _conv(x.to(dtype), kernel.to(dtype), (sh, sw),
-                            (dh, dw), ph, pw)
+                out = _conv(x.to(dtype), weight, (sh, sw), (dh, dw), ph,
+                            pw)
             if use_bias:
                 bias = _channels(ctx, ctx.get("bias"), out.shape[-1])
                 fused = epilogue_chain_reason(
@@ -388,9 +461,9 @@ def epilogue_chain_reason(out, bias, compute_dtype, activation,
     return None
 
 
-def _conv(x, kernel, strides, dilation, ph, pw):
-    """NHWC conv with an HWIO kernel and (leading, trailing) pads of the
-    height and the width."""
+def _conv(x, weight, strides, dilation, ph, pw):
+    """NHWC conv with an [out, in, kh, kw] ``weight`` and (leading,
+    trailing) pads of the height and the width."""
     if ph[0] == ph[1] and pw[0] == pw[1]:
         pad = (ph[0], pw[0])
     else:
@@ -398,12 +471,12 @@ def _conv(x, kernel, strides, dilation, ph, pw):
         # PyTorch's padding='same' refuses stride > 1
         x = F.pad(x, (0, 0, pw[0], pw[1], ph[0], ph[1]))
         pad = (0, 0)
-    out = F.conv2d(x.permute(0, 3, 1, 2), kernel.permute(3, 2, 0, 1),
-                   stride=strides, padding=pad, dilation=dilation)
+    out = F.conv2d(x.permute(0, 3, 1, 2), weight, stride=strides,
+                   padding=pad, dilation=dilation)
     return out.permute(0, 2, 3, 1)
 
 
-def _spatial_conv(axis, x, kernel, kernel_size, strides, dilation, pw):
+def _spatial_conv(axis, x, weight, kernel_size, strides, dilation, pw):
     """SAME conv of a block of rows of the frame split over ``axis``, as
     the JAX package's height-sharded path: the SAME pads of the global
     height (stride divides it, so their total is the dilated reach less
@@ -428,9 +501,9 @@ def _spatial_conv(axis, x, kernel, kernel_size, strides, dilation, pw):
                                                      rows=max(reach, 1))
         haloed = torch.cat([top[:, top.shape[1] - halo_top:], x,
                             bottom[:, :halo_bottom]], dim=1)
-        return _conv(haloed, kernel, strides, dilation, (0, 0), pw)
+        return _conv(haloed, weight, strides, dilation, (0, 0), pw)
     whole = collectives.all_gather(x, axis, dim=1)
-    out = _conv(whole, kernel, strides, dilation, (halo_top, halo_bottom),
+    out = _conv(whole, weight, strides, dilation, (halo_top, halo_bottom),
                 pw)
     rows = h_local // sh
     return out[:, axis.index * rows:(axis.index + 1) * rows]
@@ -444,8 +517,10 @@ def deconv2d(ctx, x, filters, kernel_size, name, strides=1, activation=None,
     this HWIO kernel), SAME padding giving out = in * stride. A frozen
     (not ``trainable``) square-channel kernel that is channel-diagonal
     (the bilinear initializer) takes the depthwise path, as in the JAX
-    package; that path would give the off-diagonal weights of a trainable
-    kernel no gradient. Every other kernel takes a dense
+    package, with its diagonal in the compute dtype from
+    ``ctx.kernel_cache`` where :func:`_weight_from_cache` allows it; that
+    path would give the off-diagonal weights of a trainable kernel no
+    gradient. Every other kernel takes a dense
     ``conv_transpose2d`` and the SAME crop, whose autograd gives the
     kernel its full gradient. ``use_bias`` adds ``<name>/bias``
     (float32).
@@ -483,9 +558,9 @@ def deconv2d(ctx, x, filters, kernel_size, name, strides=1, activation=None,
         if (not trainable and int(filters) == in_ch and kh == kw
                 and sh == sw and ctx.kernel_cache.channel_diagonal(
                     ctx.full_name("kernel"), kernel)):
-            idx = torch.arange(in_ch, device=kernel.device)
-            diag = kernel[:, :, idx, idx]
-            out = diagonal_upsample(x.to(dtype), diag.to(dtype), sh)
+            diag = ctx.kernel_cache.diagonal_weight(
+                ctx.full_name("kernel"), kernel, dtype, x)
+            out = diagonal_upsample(x.to(dtype), diag, sh)
         else:
             # PyTorch's conv_transpose2d weight is [in, out, kh, kw], the
             # same gradient-of-conv semantics

@@ -16,9 +16,10 @@ which fills the model's ``ops.layers.KernelCache``; the second is
 captured with ``torch.cuda.CUDAGraph`` and replayed, as is every later
 one. A graph replays the weights it captured: when any object of the
 model's ``_serving_state`` (its variables; DirichletFusion's kernel
-tables too) is no longer the one captured, the key is warmed and captured
-anew. The graph also keeps what the cache held at its capture, which a
-forward at other scales replaces there. A group's frames are written into
+tables too) is no longer the one captured, or a variable has been written
+in place since, the key is warmed and captured anew. The graph also keeps what the cache held at its capture (the
+weights in the compute dtype, the int8 operands), which new weights or a
+forward at other scales replace there. A group's frames are written into
 pinned staging buffers, one set for each of the ``max_in_flight`` slots,
 a set rewritten only once the group that last read it has completed; they
 go up to the graph's static inputs on the current stream before the
@@ -59,7 +60,6 @@ registered operators, ``ops/cuda/library.py``, and no module of
 
 import gc
 import json
-import operator
 import os
 from collections import OrderedDict, deque
 from functools import partial
@@ -208,8 +208,18 @@ class _Captured:
         self.pinned = ()
 
 
+def _versioned(state):
+    """Each object of a model's serving state with its
+    ``KernelCache.version`` where it is a tensor: a graph replays the
+    weights the kernel cache derived at its capture, so a variable written
+    in place calls for a capture anew, as a new object does."""
+    return tuple((obj, KernelCache.version(obj) if torch.is_tensor(obj)
+                  else None) for obj in state)
+
+
 def _same_state(a, b):
-    return len(a) == len(b) and all(map(operator.is_, a, b))
+    return len(a) == len(b) and all(
+        x is y and vx == vy for (x, vx), (y, vy) in zip(a, b))
 
 
 class InferenceServer:
@@ -325,7 +335,7 @@ class InferenceServer:
         """The captured entry of ``signature``'s key, made anew (the stale
         one released) when the model's serving state has changed."""
         key = (self.unroll, signature, self._attr, self._mode_key)
-        state = self._net._serving_state()
+        state = _versioned(self._net._serving_state())
         entry = self._graphs.get(key)
         if entry is not None and _same_state(entry.state, state):
             self._graphs.move_to_end(key)
@@ -376,8 +386,9 @@ class InferenceServer:
                 with tracing.span("serve.capture"):
                     entry.graph, entry.outputs = backend.capture(program)
                 # a graph holds no reference to tensors made outside its
-                # pool: keep the cached int8 operands it read alive, which
-                # a forward at other scales replaces in the cache
+                # pool: keep the cached weights and int8 operands it read
+                # alive, which new weights or a forward at other scales
+                # replace in the cache
                 entry.pinned = self._net._kernel_cache.held()
                 tracing.count("serve.graph_captures")
             backend.replay(entry.graph)

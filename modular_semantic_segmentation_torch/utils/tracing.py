@@ -43,7 +43,10 @@ The port's counters: ``serve.*`` (``serving.py``), ``fit.steps``
 ``layers.kernel_cache_miss`` (``KernelCache``), ``layers.epilogue_fused``
 (a conv whose bias, rounding and ReLU ran as the epilogue kernel) and
 ``layers.epilogue_eager`` (a float-path conv with a bias that kept the
-PyTorch chain); their ratio is the kernel's share of such convs. A
+PyTorch chain), whose ratio is the kernel's share of such convs, and
+``layers.weight_cached`` (a float-path conv that read its weight from the
+``KernelCache``) and ``layers.weight_per_call`` (one that made its
+weight for the call alone), whose ratio is the cache's share. A
 replayed CUDA graph runs no Python, so the counters inside a model's
 forward count its eager calls only.
 """

@@ -1222,3 +1222,52 @@ def test_eager_forward_counts_the_epilogue_kernel(cuda):
     counters = tracing.snapshot()["counters"]
     assert counters.get("layers.epilogue_fused", 0) == 0
     assert counters["layers.epilogue_eager"] == 16
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("unroll,in_flight,n", [(4, 2, 9), (1, 1, 3)])
+def test_graph_served_cached_weights_equal_the_per_call_forward(
+        cuda, deterministic_cudnn, unroll, in_flight, n):
+    """Labels and both experts' probabilities served from a captured graph
+    that reads every conv's bf16 channels-last weight and every frozen
+    deconv's diagonal from the kernel cache equal, bit for bit, a forward
+    that autograd records, which reads none of them there. An eager
+    forward reads all 32 conv weights a frame from the cache and misses
+    none. A variable written in place is served from a graph captured
+    anew, with the new values."""
+    from torch.profiler import ProfilerActivity, profile
+    from modular_semantic_segmentation_torch.serving import InferenceServer
+    from modular_semantic_segmentation_torch.utils import tracing
+    from modular_semantic_segmentation_torch.utils.data_io import to_numpy
+    from test_torch_weight_cache import _recorded_outputs
+    net = _flagship(cuda)
+    frames = _distinct_frames(n, 768, 384, seed=20 + unroll)
+    for attr in ("prediction", "rgb_prob", "depth_prob"):
+        server = InferenceServer(net, unroll=unroll, max_in_flight=in_flight,
+                                 output_attr=attr)
+        got = server.predict(frames)
+        (entry,) = server._graphs.values()
+        assert entry.graph is not None
+        tracing.reset()
+        with profile(activities=[ProfilerActivity.CPU]):
+            want = to_numpy(_recorded_outputs(net, frames, attr))
+            torch.cuda.synchronize()
+        counters = tracing.snapshot()["counters"]
+        assert counters.get("layers.weight_cached", 0) == 0
+        assert counters["layers.weight_per_call"] == 32 * n
+        np.testing.assert_array_equal(got, want)
+    tracing.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        _eager_outputs(net, frames[:1], "prediction")
+        torch.cuda.synchronize()
+    counters = tracing.snapshot()["counters"]
+    assert counters["layers.weight_cached"] == 32
+    assert "layers.weight_per_call" not in counters
+    assert counters.get("layers.kernel_cache_miss", 0) == 0
+    (captured,) = server._graphs.values()
+    net.variables["depth/score/kernel"].mul_(-1.0)
+    got = server.predict(frames)
+    (entry,) = server._graphs.values()
+    assert entry is not captured and entry.graph is not None
+    np.testing.assert_array_equal(
+        got, to_numpy(_recorded_outputs(net, frames, "depth_prob")))

@@ -19,6 +19,7 @@ from modular_semantic_segmentation_tpu.serving import \
 from modular_semantic_segmentation_torch.models import get_model
 from modular_semantic_segmentation_torch.models.params import \
     from_jax_variables
+from modular_semantic_segmentation_torch.ops.layers import KernelCache
 from modular_semantic_segmentation_torch.serving import (InferenceServer,
                                                          serve_frames)
 
@@ -333,10 +334,23 @@ def test_graph_key_holds_group_shapes_dtypes_attr_and_mode(stand_in):
     np.testing.assert_array_equal(float_labels, _one_by_one(net, frames))
 
 
+def _fresh_cache(net, frames):
+    """``_one_by_one`` through a kernel cache that holds nothing yet, so
+    that it reads no weight derived before."""
+    held = net._kernel_cache
+    net._kernel_cache = KernelCache()
+    try:
+        return _one_by_one(net, frames)
+    finally:
+        net._kernel_cache = held
+
+
 def test_graph_recaptured_when_a_variable_changes_identity(stand_in):
     """A variable replaced by another tensor makes the key warm up and
     capture anew (the stale entry released), so no stale weights are
-    replayed; a variable changed in place is read by the same graph."""
+    replayed; so does a variable written in place, whose new values the
+    graph captured anew reads, as a forward with a fresh kernel cache
+    does."""
     net = _fusion()
     server = InferenceServer(net, unroll=2)
     frames = _distinct(6)
@@ -348,13 +362,16 @@ def test_graph_recaptured_when_a_variable_changes_identity(stand_in):
                                   _one_by_one(net, frames))
     assert (stand_in.warms, stand_in.captures) == (2, 2)
     assert len(stand_in.released) == 1 and len(server._graphs) == 1
-    net.variables[name].mul_(3.0)
-    np.testing.assert_array_equal(server.predict(frames),
-                                  _one_by_one(net, frames))
-    assert (stand_in.warms, stand_in.captures) == (2, 2)
+    before = server.predict(frames)
+    net.variables[name].neg_()
+    got = server.predict(frames)
+    np.testing.assert_array_equal(got, _fresh_cache(net, frames))
+    assert not np.array_equal(got, before)
+    assert (stand_in.warms, stand_in.captures) == (3, 3)
+    assert len(stand_in.released) == 2 and len(server._graphs) == 1
     net.variables = dict(net.variables)  # the same tensors
     server.predict(frames)
-    assert stand_in.captures == 2
+    assert stand_in.captures == 3
 
 
 def test_a_graph_keeps_the_int8_operands_it_captured(stand_in):
